@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Phases, each fatal on failure:
+  1. the card's name and power limit; build the native library (g++) and
+     the CUDA kernels K1/K2 (nvcc) from the checkout's sources, in
+     parallel;
+  2. K1 (dq_trellis) and K2 (dq_greedy) against their plain PyTorch
+     versions on the card: adversarial blocks at log2 2..5 x QP 8/32/51,
+     then the main-path shapes of a CIF chunk, exact equality of levels
+     and f32 rate; kernel and plain times (CUDA events) beside the bound;
+  3. the port's f32 FMA helper on the card against f64-computed FMAs;
+  4. the main path: 16 synthetic CIF frames at QP 32 through
+     wrenc_tpu_torch.encoder.Encoder + WavefrontSearch, default config and
+     stage_a_trellis_rd=1, warm-up then timed, with the kernels' launch
+     counters reset just before and read just after each timed encode;
+  5. a 2-frame CIF encode per config on the card equals the same encode
+     on the CPU byte for byte, and the port's decoder reproduces the
+     card's reconstruction.
+Prints the kernels' JSON line, then as its last line
+{"ok": true, "device": {...}}. Exits nonzero, printing no result, without
+a CUDA device or outside a checkout of the repo. Imports nothing of JAX.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM rates (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s f32 on
+# the CUDA cores = 132 SMs x 128 FMA lanes x 2 flops x 1.98 GHz. The data
+# sheet gives no integer rate, so the bound takes the issue ceiling,
+# derived from that line: 4 schedulers x 32 lanes = 128 instructions per
+# SM per clock, 67e12 / 2 = 33.5e12 per second. The INT32 pipe alone has
+# half those lanes; integer work that also issues IMADs and f32 adds on
+# the FMA pipe can reach the ceiling, so it is the least time.
+HBM_BYTES_S = 3.35e12
+OPS_S = 67e12 / 2
+# 32-bit integer operations the algorithms need per coefficient position,
+# counted from csrc/dq_scan.cu: K2 = two candidate costs (13 each) plus
+# the level pick, rate and state update; K1 = four edge ingredients (16
+# each), 16 edge relaxations (12 each), the 8-state normalisation and
+# backpointer packing (32), and the backtrack (20).
+OPS_PER_POS = {"dq_greedy": 48, "dq_trellis": 315}
+SIZES = (4, 8, 16, 32)
+N_CANDS = 6                      # K + 2 stage-A candidates per block
+CIF = (352, 288)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def synth_frames(n, w, h, seed=0):
+    """bench.py's synthetic frame generator (copied)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    frames = []
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(n):
+        y = np.clip((np.sin(xx / 11 + i * 0.3) * 50
+                     + np.cos(yy / 7 - i * 0.2) * 40 + 128)
+                    + rng.integers(-10, 11, (h, w)), 0, 255).astype(np.uint8)
+        cb = (y[::2, ::2] // 2 + 64).astype(np.uint8)
+        cr = (200 - y[::2, ::2] // 2).astype(np.uint8)
+        frames.append((y, cb, cr))
+    return frames
+
+
+def adversarial_blocks(log2, seed):
+    """tests/test_trellis_pallas.py's adversarial recipe (copied)."""
+    import numpy as np
+    from wrenc_tpu_torch.spec import transform
+    rng = np.random.default_rng(seed)
+    s = 1 << log2
+    t = rng.integers(-3000, 3000, (24, s, s)).astype(np.int32)
+    t[0] = 0                                    # all-zero block
+    t[1] = 0
+    t[1, 0, 0] = 1                              # DC-only
+    t[2] = rng.integers(-3, 4, (s, s))          # tie-heavy small coeffs
+    res = np.where(rng.integers(0, 2, (s, s)) > 0, 255, -255)
+    t[3] = np.asarray(transform.forward(res.astype(np.int32)))  # saturated
+    t[4] = rng.integers(-1, 2, (s, s))          # +-1 field
+    return t
+
+
+def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+    from wrenc_tpu_torch.entropy.native import loader
+    from wrenc_tpu_torch.kernels import _build
+
+    def native():
+        t0 = time.perf_counter()
+        loader.available()
+        return time.perf_counter() - t0
+
+    def cuda():
+        t0 = time.perf_counter()
+        _, msg = _build.build("dq_scan", ("-Xptxas", "-v"))
+        _build.lib("dq_scan")
+        return time.perf_counter() - t0, msg
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        fn, fc = pool.submit(native), pool.submit(cuda)
+        t_native = fn.result()
+        t_cuda, msg = fc.result()
+    log(f"build: native g++ {t_native:.1f} s, CUDA dq_scan.cu nvcc "
+        f"{t_cuda:.1f} s (in parallel)")
+    for line in msg.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  ptxas:", line.strip())
+
+
+def _qcase(log2, qp, trellis):
+    from wrenc_tpu_torch.core.config import RateModelConfig
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.spec import quant
+    rm = RateModelConfig()
+    qpar = quant.derive_quant_params(qp, log2, log2, dep_quant=True,
+                                     transform_skip=False)
+    try:
+        lam = kq.lam_dq_table(rm, qp, trellis=trellis)
+    except AssertionError:       # greedy table leaves the exact range at 51
+        lam = kq.lam_dq_table(rm, qp, trellis=True)
+    return qpar, lam, kq.lv_table_device(rm, True, trellis)
+
+
+def _kernels():
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import trellis as ktr
+
+    def greedy(t, ls, bd, lam, lv, lg):
+        return kq.greedy_depquant(t, ls, bd, lam, lg, lv)
+
+    def greedy_plain(t, ls, bd, lam, lv, lg):
+        return kq.greedy_depquant_plain(t, ls, bd, lam, lg, lv)
+
+    return {"dq_greedy": (greedy, greedy_plain, False),
+            "dq_trellis": (ktr.trellis_rate, ktr.trellis_rate_plain, True)}
+
+
+def _err(a, b):
+    (qa, ra), (qb, rb) = a, b
+    return max(float((qa.int() - qb.int()).abs().max()),
+               float((ra - rb).abs().max()))
+
+
+def phase_kernel_checks():
+    import torch
+    errs = {}
+    for name, (kern, plain, tr) in _kernels().items():
+        worst = 0.0
+        for log2 in (2, 3, 4, 5):
+            for qp in (8, 32, 51):
+                qpar, lam, lv = _qcase(log2, qp, tr)
+                t = torch.as_tensor(adversarial_blocks(log2, 13 * log2 + qp),
+                                    device="cuda")
+                got = kern(t, qpar.ls, qpar.bd_shift, lam, lv, log2)
+                want = plain(t, qpar.ls, qpar.bd_shift, lam, lv, log2)
+                torch.cuda.synchronize()
+                e = _err(got, want)
+                if e != 0:
+                    raise AssertionError(f"{name} != plain at log2 {log2} "
+                                         f"QP {qp}: max abs err {e}")
+                worst = max(worst, e)
+        errs[name] = worst
+        log(f"{name}: equal to the plain version on the adversarial blocks "
+            f"(log2 2..5 x QP 8/32/51)")
+    return errs
+
+
+def _time_ms(fn, reps, per=1):
+    """Median over `reps` CUDA-event timings of `per` back-to-back calls,
+    divided by `per` (per > 1 hides the host's launch time under the
+    kernel's)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(per):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def phase_kernel_timing(errs):
+    """Each kernel at the main-path shapes of one CIF chunk (8 frames x 6
+    candidates per block), on DCT coefficients of residual noise."""
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import transforms
+    W, H = CIF
+    rows = {}
+    rng = np.random.default_rng(3)
+    for name, (kern, plain, tr) in _kernels().items():
+        rows[name] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "bytes_ms": 0.0, "ops_ms": 0.0, "per_size": {}}
+        for s in SIZES:
+            log2 = s.bit_length() - 1
+            B = 8 * (W // s) * (H // s) * N_CANDS
+            P = s * s
+            res = rng.integers(-24, 25, (B, s, s)).astype(np.int32)
+            t = transforms.forward_impl(torch.as_tensor(res, device="cuda"))
+            qpar, lam, lv = _qcase(log2, 32, tr)
+            got = kern(t, qpar.ls, qpar.bd_shift, lam, lv, log2)
+            want = plain(t, qpar.ls, qpar.bd_shift, lam, lv, log2)
+            torch.cuda.synchronize()
+            e = _err(got, want)
+            if e != 0:
+                raise AssertionError(f"{name} != plain at s={s}: {e}")
+            errs[name] = max(errs[name], e)
+            # the kernel alone, on inputs already in its (P, B) layout and
+            # on the card, through the wrappers' own launch helper
+            tf = kq.to_coding_order(t, log2).T.contiguous()
+            dev_args = (
+                torch.tensor([qpar.ls], dtype=torch.int32, device="cuda"),
+                torch.tensor([qpar.bd_shift], dtype=torch.int32,
+                             device="cuda"),
+                kq.table(lam, torch.int32, "cuda"),
+                kq.table(lv, torch.float32, "cuda"))
+
+            def launch():
+                kq.launch_dq(name, tf, *dev_args)
+            launch()
+            ms = _time_ms(launch, 21, per=10)
+            wrap_ms = _time_ms(
+                lambda: kern(t, qpar.ls, qpar.bd_shift, lam, lv, log2), 11)
+            plain_ms = _time_ms(
+                lambda: plain(t, qpar.ls, qpar.bd_shift, lam, lv, log2), 3)
+            nbytes = 4 * P * B * 2 + 4 * B + 8 * 1024
+            ops = OPS_PER_POS[name] * P * B
+            bytes_ms = nbytes / HBM_BYTES_S * 1e3
+            ops_ms = ops / OPS_S * 1e3
+            row = rows[name]
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+            row["bound_ms"] += max(bytes_ms, ops_ms)
+            row["bytes_ms"] += bytes_ms
+            row["ops_ms"] += ops_ms
+            row["per_size"][s] = {"B": B, "P": P, "ms": ms,
+                                  "wrapper_ms": wrap_ms,
+                                  "plain_ms": plain_ms,
+                                  "bound_ms": max(bytes_ms, ops_ms)}
+            log(f"{name} s={s:2d} B={B:6d} P={P:4d}: kernel {ms:.4f} ms, "
+                f"wrapper {wrap_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+                f"{max(bytes_ms, ops_ms):.4f} ms")
+    return rows
+
+
+def phase_fma():
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.kernels.transforms import fma
+    rng = np.random.default_rng(11)
+    n = 1 << 20
+    a = rng.standard_normal(n).astype(np.float32)
+    b = (rng.standard_normal(n) * 1e3).astype(np.float32)
+    c = (rng.standard_normal(n) * 1e6).astype(np.float32)
+    got = fma(*(torch.as_tensor(x, device="cuda") for x in (a, b, c)))
+    got = got.cpu().numpy()
+    want = (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+    cpu = fma(*(torch.as_tensor(x) for x in (a, b, c))).numpy()
+    if not ((got == want).all() and (got == cpu).all()):
+        raise AssertionError("FMA helper on the card != f64 FMA")
+    log(f"fma: equal to the f64-computed FMA on {n} random elements")
+
+
+def _cfg(trellis):
+    from wrenc_tpu_torch.core.config import EncoderConfig
+    cfg = EncoderConfig(width=CIF[0], height=CIF[1], qp=32)
+    cfg.rate_model.stage_a_trellis_rd = float(trellis)
+    return cfg
+
+
+def phase_main_path():
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.decoder import decode_annexb
+    from wrenc_tpu_torch.encoder import Encoder
+    from wrenc_tpu_torch.kernels import quantize, trellis
+    from wrenc_tpu_torch.search import WavefrontSearch
+    frames = synth_frames(16, *CIF, seed=1)
+    counters = {"dq_greedy": quantize.greedy_depquant,
+                "dq_trellis": trellis.trellis_rate}
+    out = {}
+    for tr, name in ((0, "default"), (1, "stage_a_trellis_rd=1")):
+        cfg = _cfg(tr)
+        enc = Encoder(cfg, search=WavefrontSearch(cfg))
+        t0 = time.perf_counter()
+        enc.encode(frames)                                 # warm-up
+        warm = time.perf_counter() - t0
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream, recons = enc.encode(frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        n_chunks = -(-len(frames) // enc.search._buckets()[-1])
+        need = "dq_trellis" if tr else "dq_greedy"
+        if launches[need] <= 0:
+            raise AssertionError(f"{name}: {need} never launched")
+        # one chunk's luma stage A alone, dispatch to results on the host;
+        # the dispatch itself must not synchronize (any blocking CUDA call
+        # raises under the sync debug mode)
+        search = enc.search
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatched = search._dispatch_stage_a(frames[:8])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        search._decide_chunk(dispatched)
+        t0 = time.perf_counter()
+        search._decide_chunk(search._dispatch_stage_a(frames[:8]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        search._dispatch_stage_a(frames[:8])
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        stage_a = {"dispatch_ms": (t2 - t1) * 1e3,
+                   "dispatch_to_idle_ms": (t3 - t1) * 1e3,
+                   "with_host_decide_ms": (t1 - t0) * 1e3}
+        dec = decode_annexb(stream)
+        if len(dec) != len(frames) or not all(
+                (dec[k][c] == recons[k][c]).all()
+                for k in range(len(frames)) for c in range(3)):
+            raise AssertionError(f"{name}: decode != reconstruction")
+        mse = np.mean([(r[0].astype(np.float64) - f[0]) ** 2
+                       for r, f in zip(recons, frames)])
+        psnr = 10 * np.log10(255 ** 2 / mse)
+        phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
+        out[name] = {"fps": len(frames) / dt, "seconds": dt,
+                     "warmup_seconds": warm, "bytes": len(stream),
+                     "psnr_y": psnr, "launches": launches,
+                     "launches_per_chunk": {
+                         k: v / n_chunks for k, v in launches.items()},
+                     "phase_times": phases, "stage_a_one_chunk": stage_a}
+        log(f"main path [{name}]: {len(frames)} CIF frames QP 32 in "
+            f"{dt:.3f} s = {len(frames) / dt:.3f} fps (warm-up {warm:.1f} "
+            f"s), {len(stream)} bytes, PSNR-Y {psnr:.2f} dB, launches "
+            f"{launches}")
+        log(f"  phase_times (s): {json.dumps(phases)}")
+        log(f"  stage A, one 8-frame chunk alone: dispatch "
+            f"{stage_a['dispatch_ms']:.1f} ms, dispatch until the device "
+            f"is idle {stage_a['dispatch_to_idle_ms']:.1f} ms; with the "
+            f"host decide {stage_a['with_host_decide_ms']:.1f} ms")
+    return out
+
+
+def phase_card_vs_cpu():
+    from wrenc_tpu_torch.decoder import decode_annexb
+    from wrenc_tpu_torch.encoder import Encoder
+    from wrenc_tpu_torch.search import WavefrontSearch
+    frames = synth_frames(2, *CIF, seed=5)
+    for tr in (0, 1):
+        cfg = _cfg(tr)
+        s_gpu, r_gpu = Encoder(cfg, search=WavefrontSearch(cfg)).encode(
+            frames)
+        t0 = time.perf_counter()
+        s_cpu, _ = Encoder(cfg, search=WavefrontSearch(
+            cfg, device="cpu")).encode(frames)
+        t_cpu = time.perf_counter() - t0
+        if s_gpu != s_cpu:
+            raise AssertionError(f"trellis={tr}: card bytes != CPU bytes")
+        dec = decode_annexb(s_gpu)
+        if not all((dec[k][c] == r_gpu[k][c]).all()
+                   for k in range(2) for c in range(3)):
+            raise AssertionError(f"trellis={tr}: decode != reconstruction")
+        log(f"2-frame CIF encode, stage_a_trellis_rd={tr}: card bytes == "
+            f"CPU bytes ({len(s_gpu)} bytes; CPU encode {t_cpu:.1f} s), "
+            f"decode == reconstruction")
+
+
+def main():
+    if not os.path.isdir(os.path.join(ROOT, "wrenc_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repo (no "
+              "wrenc_tpu_torch beside this script)", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    import wrenc_tpu_torch  # noqa: F401  (TF32 off)
+    phase_build()
+    errs = phase_kernel_checks()
+    rows = phase_kernel_timing(errs)
+    phase_fma()
+    main_path = phase_main_path()
+    phase_card_vs_cpu()
+
+    replaces = {"dq_trellis": "wrenc_tpu/kernels/trellis_pallas.py:55",
+                "dq_greedy": "wrenc_tpu/kernels/quantize.py:136"}
+    config_of = {"dq_trellis": "stage_a_trellis_rd=1",
+                 "dq_greedy": "default"}
+    kernels = []
+    for name in ("dq_trellis", "dq_greedy"):
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "wrenc_tpu_torch/kernels/csrc/dq_scan.cu",
+            "replaces": replaces[name],
+            "launches": main_path[config_of[name]]["launches"][name],
+            "max_abs_err": errs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes"),
+            "library_ms": None,
+            "per_size": r["per_size"]})
+    log(f"main path: {json.dumps(main_path)}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,712 @@
+"""Wavefront search in PyTorch: batched QT partition + intra mode decision.
+
+Counterpart of wrenc_tpu/search/wavefront.py for the main path (see that
+module's docstring for the two-stage design):
+
+Stage A, luma — on the device: per QT size, the substitution gather and
+[1 2 1] filter, the 67-mode sweep as two exact matmuls, SAD + top-K, the
+RD chain (DCT-II, greedy dep-quant scan = CUDA kernel K2, or the trellis
+= CUDA kernel K1 under `stage_a_trellis_rd=1`, dequantization, SSD), and
+the on-device MPM-Jacobi winner selection and ranking. Dispatch does not
+synchronize, so chunk k+1's device work runs under chunk k's host passes.
+
+Stage A, chroma, and stage B — on the host, in the native C++ library:
+chroma candidate RD, the bottom-up QT decision, tree assembly, and the
+RD commit against the true reconstruction in a worker thread.
+
+Paths of the JAX module outside this slice (the device commit engine,
+the greedy and non-RD commits, the sharded mesh, per-QG QP deltas,
+host-side luma selection, device chroma stage A) raise
+NotImplementedError.
+"""
+import functools
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..entropy import native
+from ..entropy.structure import CtNode, CuDecision
+from ..kernels import intra_pred, quantize as kq, refs, transforms
+from ..kernels import trellis as ktr
+from ..spec import quant
+
+
+def _not_ported(what):
+    raise NotImplementedError(
+        f"{what} is not ported to wrenc_tpu_torch yet (ROADMAP.md, "
+        "'Modules still to port')")
+
+
+def resolve_device(device):
+    """None means the card; a missing card raises (no CPU fallback)."""
+    dev = torch.device('cuda' if device is None else device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "port on the CPU")
+    return dev
+
+
+class WavefrontSearch:
+    def __init__(self, cfg, trellis_commit=True, mesh=None, rd_commit=True,
+                 commit_engine=None, chroma_stage_a=None, device=None):
+        """device: torch device for stage A; None = 'cuda' (raises when no
+        card is present). The other options are as in the JAX package;
+        only their defaults are ported (the native RD tree commit with the
+        trellis quantizer, a single device, native chroma)."""
+        cfg.validate()
+        if not (trellis_commit and rd_commit):
+            _not_ported("the greedy / non-RD commit (trellis_commit=False, "
+                        "rd_commit=False)")
+        if mesh is not None:
+            _not_ported("the sharded stage A (mesh=)")
+        commit_engine = commit_engine or os.environ.get(
+            'WRENC_COMMIT_ENGINE', 'native')
+        if commit_engine != 'native':
+            _not_ported(f"commit_engine={commit_engine!r}")
+        if tuple(getattr(cfg, 'qp_delta_pattern', ()) or ()):
+            _not_ported("qp_delta_pattern (per-QG QP)")
+        if os.environ.get('WRENC_STAGE_A_SELECT', 'device') != 'device':
+            _not_ported("host-side luma selection (WRENC_STAGE_A_SELECT)")
+        auto_chroma = ('device' if cfg.width * cfg.height >= 1 << 19
+                       else 'native')
+        if (chroma_stage_a or os.environ.get(
+                'WRENC_CHROMA_STAGE_A', auto_chroma)) == 'device':
+            _not_ported("device chroma stage A (default at >= 0.5 Mpx)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.rm = cfg.rate_model
+        qp = cfg.qp
+        self.qp_c = quant.chroma_qp_from_luma(qp)
+        self.qpar = {}
+        for c_idx in (0, 1):
+            q = qp if c_idx == 0 else self.qp_c
+            for log2 in (2, 3, 4, 5):
+                self.qpar[(c_idx, log2)] = quant.derive_quant_params(
+                    q, log2, log2, dep_quant=cfg.dep_quant_enabled,
+                    transform_skip=False)
+        self.lam_dq_greedy = kq.lam_dq_table(self.rm, qp, trellis=False)
+        self.lam_dq_trellis = kq.lam_dq_table(self.rm, qp, trellis=True)
+        self.lv_greedy = kq.lv_table_device(self.rm, cfg.dep_quant_enabled,
+                                            False)
+        self.lv_trellis = kq.lv_table_device(self.rm, cfg.dep_quant_enabled,
+                                             True)
+        dep = cfg.dep_quant_enabled
+        self.lam = 2.0 ** (qp / self.rm.pick('qp_div', dep, True)) \
+            * self.rm.pick('lambda_mul', dep, True)
+        self._mode_bits = self._approx_mode_bits()
+        self.mode_bits_scale = getattr(self.rm, 'stage_a_mode_bits_scale',
+                                       2.0)
+        self._dev_args = None
+
+    # ------------------------------------------------------------- stage A
+    def _approx_mode_bits(self):
+        """Static per-mode luma mode-bits estimate (MPM membership is
+        neighbour-dependent; stage A uses the expectation)."""
+        rm, dep = self.rm, self.cfg.dep_quant_enabled
+        out = np.zeros(67, dtype=np.float32)
+        out[0] = rm.pick('planar_offset', dep, True)
+        mpm = (1.0 + rm.pick('mpm_idx_offset', dep, True)) ** rm.mpm_idx_pow
+        rem = rm.pick('mpm_remainder_mult', dep, True) * \
+            (30.0 + rm.pick('mpm_remainder_offset', dep, True)) \
+            ** rm.mpm_remainder_pow
+        out[1:] = rm.pick('non_planar_offset', dep, True) + \
+            0.5 * (mpm + rem)
+        return out
+
+    def encode_frame(self, planes):
+        return self.encode_frames([planes])[0]
+
+    # fixed stage-A batch buckets, as in the JAX package: every frame
+    # batch is padded up to one of these, and large frames cap the chunk
+    # by a pixel budget so the per-chunk device working set stays bounded
+    BATCH_BUCKETS = (1, 2, 4, 8)
+    CHUNK_PIXEL_BUDGET = 3_500_000
+
+    def _buckets(self):
+        px = self.cfg.width * self.cfg.height
+        bs = [b for b in self.BATCH_BUCKETS if b * px <= self.CHUNK_PIXEL_BUDGET]
+        return bs or [1]
+
+    def _bucket(self, n):
+        bs = self._buckets()
+        for b in bs:
+            if n <= b:
+                return b
+        return bs[-1]
+
+    def encode_frames(self, frames):
+        """Chunked batched API: frames are processed in fixed-size stage-A
+        batches (padded to a bucket size). The device stage A of chunk k+1
+        is dispatched BEFORE the host passes of chunk k run (dispatch does
+        not synchronize), and the commit of chunk k runs in a worker
+        thread (the native call releases the GIL) under chunk k+1's decide
+        phase. Returns [(trees, recon), ...]."""
+        from concurrent.futures import ThreadPoolExecutor
+        self.phase_times = {}
+        out = []
+        max_b = self._buckets()[-1]
+        chunks = [frames[i:i + max_b] for i in range(0, len(frames), max_b)]
+        pending = self._dispatch_stage_a(chunks[0])
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            prev = None
+            for k, chunk in enumerate(chunks):
+                nxt = (self._dispatch_stage_a(chunks[k + 1])
+                       if k + 1 < len(chunks) else None)
+                batch, trees = self._decide_chunk(pending)
+                pending = nxt
+                if prev is not None:
+                    out.extend(self._join_commit(prev))
+                timing = {}
+                fut = pool.submit(self._commit_timed, batch, trees, timing)
+                prev = (fut, trees, timing)
+            out.extend(self._join_commit(prev))
+        return out
+
+    def _commit_timed(self, batch, all_trees, timing):
+        t0 = time.perf_counter()
+        recons = self._commit_all(all_trees, batch)
+        timing['work'] = time.perf_counter() - t0
+        return recons
+
+    def _join_commit(self, prev):
+        fut, trees, timing = prev
+        t0 = time.perf_counter()
+        recons = fut.result()
+        # host_commit = time this thread BLOCKED on the commit (the
+        # overlap with the next chunk's decide is hidden);
+        # host_commit_work = the commit's own wall time in the worker
+        self._phase('host_commit', time.perf_counter() - t0)
+        self._phase('host_commit_work', timing.get('work', 0.0))
+        return list(zip(trees, recons))
+
+    def _phase(self, name, dt):
+        if not hasattr(self, 'phase_times'):
+            self.phase_times = {}
+        self.phase_times[name] = self.phase_times.get(name, 0.0) + dt
+
+    def _stage_a_args(self):
+        """Device-resident QP tables and scalars for stage A, uploaded once
+        per search: a host scalar handed to a CUDA op inside the dispatch
+        would cost a blocking copy per chunk."""
+        if self._dev_args is None:
+            cfg, dev = self.cfg, self.device
+            tr = bool(getattr(self.rm, 'stage_a_trellis_rd', 0.0))
+            sizes = self._sizes()
+
+            def i32(v):
+                return torch.tensor([int(v)], dtype=torch.int32, device=dev)
+
+            def f32(v):
+                return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+            po, idx_bits, rem_bits = _mpm_scalar_tabs(
+                self.rm, cfg.dep_quant_enabled)
+            self._dev_args = dict(
+                K=int(getattr(self.rm, 'stage_a_num_rd_cands', 4)),
+                trellis=tr,
+                ls={s: i32(self.qpar[(0, s.bit_length() - 1)].ls)
+                    for s in sizes},
+                bd={s: i32(self.qpar[(0, s.bit_length() - 1)].bd_shift)
+                    for s in sizes},
+                lam_dq=torch.as_tensor(
+                    self.lam_dq_trellis if tr else self.lam_dq_greedy,
+                    device=dev),
+                lv=f32(self.lv_trellis if tr else self.lv_greedy),
+                lam=f32(np.float32(self.lam)),
+                mats={s: intra_pred.mats_device_f32(s, 0, dev)
+                      for s in sizes},
+                seltabs=(f32(np.float32(self.lam * self.mode_bits_scale)),
+                         f32(self._mode_bits), f32(po), f32(idx_bits),
+                         f32(rem_bits)))
+        return self._dev_args
+
+    def _sizes(self):
+        cfg = self.cfg
+        return [1 << (cfg.log2_ctu_size - d)
+                for d in range(cfg.max_split_depth, -1, -1)]
+
+    def _dispatch_stage_a(self, frames):
+        """Dispatch the fused luma stage A for one chunk; does NOT block.
+        Returns (batch, sizes, device results, pinned upload buffer)."""
+        cfg = self.cfg
+        batch = [[np.asarray(p, dtype=np.int32) for p in planes]
+                 for planes in frames]
+        F = len(batch)
+        Fpad = self._bucket(F)
+        padded = batch + [batch[-1]] * (Fpad - F) if Fpad > F else batch
+        sizes = self._sizes()
+        args = self._stage_a_args()
+        t0 = time.perf_counter()
+        # pixels cross to the device as uint8, from pinned memory without
+        # blocking; the buffer is returned so it outlives the copy
+        host = torch.from_numpy(
+            np.stack([b[0] for b in padded]).astype(np.uint8))
+        if self.device.type == 'cuda':
+            host = host.pin_memory()
+        planes = host.to(self.device, non_blocking=True)
+        res = fused_luma_stage_a(planes, cfg.width, cfg.height,
+                                 cfg.log2_ctu_size, tuple(sizes), **args)
+        self._phase('device_dispatch', time.perf_counter() - t0)
+        return batch, sizes, res, host
+
+    def _decide_chunk(self, dispatched):
+        """Wait for a dispatched stage A and run the decide phases;
+        returns (batch, all_trees) ready for _commit_all."""
+        self.batch, sizes, res, _ = dispatched
+        F = len(self.batch)
+        luma_mode_b = {}
+        luma_cost_b = {}
+        luma_cands_b = {}
+        luma_cand_cost_b = {}
+        t0 = time.perf_counter()
+        res = {s: tuple(x.cpu().numpy() for x in r)   # waits for the device
+               for s, r in res.items()}
+        self._phase('device_stage_a', time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for s in sizes:
+            rk, cost, c2 = res[s]
+            luma_mode_b[s] = rk[:F, :, 0].astype(np.int64)
+            luma_cost_b[s] = cost[:F]
+            luma_cands_b[s] = rk[:F].astype(np.int32)
+            luma_cand_cost_b[s] = c2[:F]
+        self._phase('host_select', time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        chroma_cache = {}
+        self._prefill_chroma_cache(chroma_cache, luma_mode_b, sizes, F)
+        self._phase('host_chroma_rd', time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        all_trees = []
+        for fi in range(F):
+            self.orig = self.batch[fi]
+            self.luma_cands = {s: luma_cands_b[s][fi] for s in sizes}
+            self.luma_cand_costs = {s: luma_cand_cost_b[s][fi]
+                                    for s in sizes}
+            trees = self._decide_and_commit(
+                {s: luma_mode_b[s][fi] for s in sizes},
+                {s: luma_cost_b[s][fi] for s in sizes},
+                sizes, fi, luma_mode_b, chroma_cache)
+            all_trees.append(trees)
+        self._phase('host_decide', time.perf_counter() - t0)
+        return self.batch, all_trees
+
+    def _commit_all(self, all_trees, batch):
+        """Commit every frame's decisions against true reconstruction in
+        the native C++ engine (coding-order walk, threaded across frames).
+        Runs in a worker thread (see encode_frames): touches only
+        `batch`/`all_trees`, never chunk-coupled instance state."""
+        ls_tab = np.zeros((2, 4), dtype=np.int32)
+        bd_tab = np.zeros((2, 4), dtype=np.int32)
+        for c in (0, 1):
+            for log2 in (2, 3, 4, 5):
+                qpar = self.qpar[(c, log2)]
+                ls_tab[c, log2 - 2] = qpar.ls
+                bd_tab[c, log2 - 2] = qpar.bd_shift
+        rm, dep = self.rm, self.cfg.dep_quant_enabled
+        i = np.arange(1024, dtype=np.float64)
+        lv64 = ((i + rm.pick('lv_offset', dep, True))
+                ** rm.pick('lv_pow', dep, True)
+                * 16384.0).astype(np.int64)
+        return native.commit_frames_tree_native(
+            self.cfg, batch, all_trees, ls_tab, bd_tab, self.lam_dq_trellis,
+            True, lv64)
+
+    def _decide_and_commit(self, luma_mode, luma_cost, sizes, fi,
+                           luma_mode_b, chroma_cache):
+        cfg = self.cfg
+        W, H = cfg.width, cfg.height
+        dep = cfg.dep_quant_enabled
+        self._prep_cand_matrices(sizes)
+
+        # chroma costs with derived modes (batched across frames, cached)
+        hb = self.rm.pick('header_bits', dep, True)
+        chb = self.rm.pick('chroma_header_bits', dep, True)
+        ncc = (self.rm.pick('non_cclm_offset', dep, True)
+               if cfg.cclm_enabled else 0.0)
+
+        # bottom-up QT decision
+        min_s = sizes[0]
+        cost = None
+        split = {}
+        refine = {}
+        margin = self.rm.split_refine_margin
+        self.cclm_choice = {}
+        self.scipu_choice = None
+        for s in sizes:
+            n_bw, n_bh = W // s, H // s
+            lc = luma_cost[s].reshape(n_bh, n_bw)
+            if s == 4:
+                # dual-tree luma leaves (inside SCIPU): hb/3, no chroma
+                # (mode bits are already inside lc)
+                leaf = lc + self.lam * (hb / 3.0)
+                cost = leaf
+                continue
+            cs = s // 2
+            # single-tree leaf: luma + best-of(derived, CCLM) chroma + bits
+            ch = chroma_cache[('leaf', s)][fi]
+            ch_total = ch + self.lam * ncc
+            if cfg.cclm_enabled:
+                cc, cm = self._cclm_cached(chroma_cache, cs, fi)
+                use = cc < ch_total
+                self.cclm_choice[s] = np.where(use, cm, -1)
+                ch_total = np.where(use, cc, ch_total)
+            leaf = (lc + ch_total.reshape(n_bh, n_bw)
+                    + self.lam * hb)
+            if cost is None:
+                cost = leaf
+                split[s] = np.zeros_like(leaf, dtype=bool)
+                continue
+            agg = (cost[0::2, 0::2] + cost[0::2, 1::2]
+                   + cost[1::2, 0::2] + cost[1::2, 1::2])
+            if s == 8 and min_s == 4:
+                # SCIPU: 4 luma-only children + one chroma CU whose mode is
+                # derived from the centre (bottom-right) 4x4 child
+                sc_total = chroma_cache[('scipu', 8)][fi] + self.lam * ncc
+                if cfg.cclm_enabled:
+                    cc, cm = self._cclm_cached(chroma_cache, 4, fi)
+                    use = cc < sc_total
+                    self.scipu_choice = np.where(use, cm, -1)
+                    sc_total = np.where(use, cc, sc_total)
+                agg = agg + sc_total.reshape(n_bh, n_bw) + self.lam * chb
+            split_here = agg <= leaf
+            split[s] = split_here
+            if margin > 0:
+                refine[s] = (np.abs(agg - leaf)
+                             <= margin * np.maximum(np.abs(leaf), 1.0))
+            cost = np.where(split_here, agg, leaf)
+        # plain Python lists for the tree walk (one bulk .tolist() per
+        # array instead of per-element numpy scalar indexing)
+        self.split = {s: m.tolist() for s, m in split.items()}
+        self.refine = {s: m.tolist() for s, m in refine.items()}
+        self.luma_mode = {s: np.asarray(m).tolist()
+                          for s, m in luma_mode.items()}
+        self.cclm_choice = {s: np.asarray(c).tolist()
+                            for s, c in self.cclm_choice.items()}
+        if self.scipu_choice is not None:
+            self.scipu_choice = np.asarray(self.scipu_choice).tolist()
+        return self._assemble_trees()
+
+    def _prefill_chroma_cache(self, cache, luma_mode_b, sizes, F):
+        """All chroma stage-A costs in one native host call
+        (wrenc_chroma_stage_a), combined in f64."""
+        cfg = self.cfg
+        W, H = cfg.width, cfg.height
+        dmodes = {}
+        for cs in (4, 8, 16):
+            s = 2 * cs
+            dmodes[cs] = luma_mode_b[s] if s in sizes else None
+        scipu_modes = None
+        if 4 in sizes and 8 in sizes:
+            scipu_modes = luma_mode_b[4].reshape(
+                F, H // 4, W // 4)[:, 1::2, 1::2].reshape(F, -1)
+        ls_c = [self.qpar[(1, lg)].ls for lg in (2, 3, 4)]
+        bd_c = [self.qpar[(1, lg)].bd_shift for lg in (2, 3, 4)]
+        res = native.chroma_stage_a_native(
+            cfg, self.batch, dmodes, scipu_modes, ls_c, bd_c,
+            self.lam_dq_greedy, self.lv_greedy)
+        lam = self.lam
+        dep = cfg.dep_quant_enabled
+
+        def combine(ssd, rate):
+            c = ssd.astype(np.float64) + lam * rate.astype(np.float64) \
+                / 16384.0
+            return c[..., 0] + c[..., 1]
+
+        for cs in (4, 8, 16):
+            if ('d', cs) in res:
+                cache[('leaf', 2 * cs)] = combine(*res[('d', cs)])
+        if ('sc',) in res:
+            cache[('scipu', 8)] = combine(*res[('sc',)])
+        if cfg.cclm_enabled:
+            co = self.rm.pick('cclm_offset', dep, True)
+            cio = self.rm.pick('cclm_mode_idx_offset', dep, True)
+            bits = np.array([co + (i + cio) ** self.rm.cclm_pow
+                             for i in range(3)])
+            for cs in (4, 8, 16):
+                if ('cc', cs) not in res:
+                    continue
+                c = combine(*res[('cc', cs)])          # (F, 3, N)
+                c = c + (lam * bits)[None, :, None]
+                best = np.argmin(c, axis=1)
+                cost = np.take_along_axis(c, best[:, None, :], axis=1)[:, 0]
+                cache[('cclm', cs)] = (cost, (81 + best).astype(np.int32))
+
+    def _cclm_cached(self, cache, cs, fi):
+        cc, cm = cache[('cclm', cs)]
+        return cc[fi], cm[fi]
+
+    # ----------------------------------------------------- tree assembly
+    def _assemble_trees(self):
+        cfg = self.cfg
+        W, H = cfg.width, cfg.height
+        cs = cfg.ctu_size
+        trees = []
+        for cy in range(0, H, cs):
+            for cx in range(0, W, cs):
+                trees.append(self._build_node(cx, cy, cfg.log2_ctu_size,
+                                              0, 'S', 'ALL'))
+        return trees
+
+    def _prep_cand_matrices(self, sizes):
+        """Vectorised commit candidate lists per size: ranked stage-A
+        candidates + the +-1 probes around the best angular (the reference
+        step search's final refinement, block_splitter.rs:905-974), with
+        confident blocks pruned to the winner alone. -1 pads."""
+        self.cand_mat = {}
+        prune = getattr(self.rm, 'rd_commit_prune_margin', 0.0)
+        for s in sizes:
+            cands = np.asarray(self.luma_cands[s])        # (N, K) ranked
+            costs = np.asarray(self.luma_cand_costs[s])
+            N, K = cands.shape
+            out = np.full((N, K + 2), -1, np.int32)
+            out[:, :K] = cands
+            has_ang = cands >= 2
+            first = np.argmax(has_ang, axis=1)
+            ang = cands[np.arange(N), first]
+            valid = has_ang.any(axis=1)
+            for d, col in ((-1, K), (1, K + 1)):
+                nb = ang + d
+                ok = (valid & (nb >= 2) & (nb <= 66)
+                      & ~(cands == nb[:, None]).any(axis=1))
+                out[ok, col] = nb[ok]
+            if prune > 0 and K > 1:
+                pr = (costs[:, 1] - costs[:, 0]
+                      > prune * np.maximum(np.abs(costs[:, 0]), 1.0))
+                out[pr, 1:] = -1
+            self.cand_mat[s] = out
+
+    def _make_leaf_cu(self, x, y, log2, tree, s):
+        idx = (y // s) * (self.cfg.width // s) + x // s
+        m = int(self.luma_mode[s][idx])
+        cmode = m
+        if tree == 'S' and s in self.cclm_choice:
+            cc = int(self.cclm_choice[s][idx])
+            if cc >= 0:
+                cmode = cc
+        cu = CuDecision(x, y, log2, tree, luma_mode=m,
+                        chroma_mode=(cmode if tree == 'S' else 0))
+        cu.cands = self.cand_mat[s][idx]   # fixed-width row, -1 padded
+        return cu
+
+    def _build_node(self, x, y, log2, cqt_depth, tree, mode_type):
+        s = 1 << log2
+        node = CtNode(x, y, log2, cqt_depth, tree, mode_type)
+        min_log2 = self.cfg.log2_ctu_size - self.cfg.max_split_depth
+        do_split = (log2 > min_log2
+                    and bool(self.split[s][y // s][x // s]))
+        do_refine = (tree == 'S' and log2 > min_log2 and s in self.refine
+                     and bool(self.refine[s][y // s][x // s]))
+        if do_refine:
+            node.refine = True
+            node.alt_cu = self._make_leaf_cu(x, y, log2, tree, s)
+            do_split = True
+        if do_split:
+            node.split = True
+            half = s >> 1
+            scipu = (tree == 'S' and s == 8 and self.cfg.chroma_format == 1)
+            for i in range(4):
+                bx, by = x + (i % 2) * half, y + (i // 2) * half
+                node.children.append(self._build_node(
+                    bx, by, log2 - 1, cqt_depth + 1,
+                    'L' if scipu else tree, 'INTRA' if scipu else mode_type))
+            if scipu:
+                ch = CtNode(x, y, log2, cqt_depth, 'C', 'INTRA')
+                center = int(self.luma_mode[4][(y // 4 + 1) * (self.cfg.width // 4)
+                                               + (x // 4 + 1)])
+                if self.scipu_choice is not None:
+                    idx = (y // 8) * (self.cfg.width // 8) + x // 8
+                    cc = int(self.scipu_choice[idx])
+                    if cc >= 0:
+                        center = cc
+                ch.cu = CuDecision(x, y, log2, 'C', luma_mode=0,
+                                   chroma_mode=center)
+                node.children.append(ch)
+        else:
+            node.cu = self._make_leaf_cu(x, y, log2, tree, s)
+        return node
+
+
+# ------------------------------------------------------ luma stage A
+def _mpm_list_dev(l, a):
+    """Tensor replica of entropy.syntax.derive_mpm_list over int vectors
+    (spec 8.4.2; ctu.rs:1530-1601). Pure integer logic — agrees with the
+    scalar host function for every (l, a) pair (unit-tested)."""
+    mn, mx = torch.minimum(l, a), torch.maximum(l, a)
+    d = mx - mn
+
+    def m64(x, k):
+        return 2 + (x + k) % 64           # floor modulo, as in Python
+
+    def st(*cols):
+        return torch.stack(cols, dim=-1)
+
+    A = st(l, m64(l, 61), m64(l, -1), m64(l, 60), m64(l, 0))
+    B1 = st(l, a, m64(mn, 61), m64(mx, -1), m64(mn, 60))
+    B2 = st(l, a, m64(mn, -1), m64(mx, 61), m64(mn, 0))
+    B3 = st(l, a, m64(mn, -1), m64(mn, 61), m64(mx, -1))
+    B4 = st(l, a, m64(mn, 61), m64(mn, -1), m64(mx, 61))
+    C = st(mx, m64(mx, 61), m64(mx, -1), m64(mx, 60), m64(mx, 0))
+    D = _mpm_default(l.dtype, l.device).expand(l.shape + (5,))
+    d_ = d[..., None]
+    B = torch.where(d_ == 1, B1,
+                    torch.where(d_ >= 62, B2, torch.where(d_ == 2, B3, B4)))
+    diff = (l != a)[..., None]
+    any_ang = ((l > 1) | (a > 1))[..., None]
+    return torch.where(((l == a) & (l > 1))[..., None], A,
+                       torch.where(diff & any_ang & (mn > 1)[..., None], B,
+                                   torch.where(diff & any_ang, C, D)))
+
+
+@functools.lru_cache(maxsize=None)
+def _mpm_default(dtype, device):
+    """The MPM list when neither neighbour is angular (cached on the
+    device: a fresh host tensor per call would block the dispatch)."""
+    return torch.tensor([1, 50, 18, 46, 54], dtype=dtype, device=device)
+
+
+def _bits_dev(cands, C, po, idx_bits, rem_bits):
+    """Mode-bit estimate for each candidate given the (.., 5) MPM list —
+    the device replica of the host (67, 67, 67) table's row construction.
+    po/idx_bits/rem_bits are host-precomputed in f64 and rounded to f32."""
+    cm = cands[..., None] == C[..., None, :]              # (.., K, 5)
+    has = cm.any(-1)
+    fi = cm.to(torch.int32).argmax(-1)                    # first index
+    ib = idx_bits[fi]
+    cnt = (C[..., None, :] < cands[..., None]).sum(-1)
+    rem = (cands - 1 - cnt).clamp(0, rem_bits.shape[0] - 1)
+    rb = rem_bits[rem]
+    return torch.where(cands == 0, po, torch.where(has, ib, rb))
+
+
+def _select_modes_dev(base, cands, nbh, nbw, top_mask, sc, mb67, po,
+                      idx_bits, rem_bits, iters=2):
+    """Static-bits provisional pick, then `iters` Jacobi refinements where
+    each block's MPM list is approximated from its left/above same-size
+    neighbours' picks; ranks the candidates by final cost. Every f32
+    `base + sc * bits` is one fused multiply-add, as XLA computes it."""
+    F = base.shape[0]
+    total = transforms.fma(sc, mb67[cands], base)
+    pick = total.argmin(2)                                # first index
+    mode = cands.gather(2, pick[..., None])[..., 0]
+    for _ in range(iters):
+        g = mode.reshape(F, nbh, nbw)
+        lm = torch.zeros_like(g)
+        lm[:, :, 1:] = g[:, :, :-1]
+        am = torch.zeros_like(g)
+        am[:, 1:, :] = g[:, :-1, :]
+        am = torch.where(top_mask[None, :, None], 0, am)   # above-CTU row
+        C = _mpm_list_dev(lm.reshape(F, -1), am.reshape(F, -1))
+        bits = _bits_dev(cands, C, po, idx_bits, rem_bits)
+        total = transforms.fma(sc, bits, base)
+        pick = total.argmin(2)
+        mode = cands.gather(2, pick[..., None])[..., 0]
+    order = torch.argsort(total, dim=2, stable=True)
+    ranked = cands.gather(2, order)
+    cost = total.gather(2, order)
+    return ranked.to(torch.int8), cost[..., 0], cost[..., :2]
+
+
+def _mpm_scalar_tabs(rm, dep):
+    """Host-side f64-exact scalar tables consumed by _bits_dev."""
+    po = rm.pick('planar_offset', dep, True)
+    npo = rm.pick('non_planar_offset', dep, True)
+    mio = rm.pick('mpm_idx_offset', dep, True)
+    mrm = rm.pick('mpm_remainder_mult', dep, True)
+    mro = rm.pick('mpm_remainder_offset', dep, True)
+    idx_bits = np.float32([npo + (i + mio) ** rm.mpm_idx_pow
+                           for i in range(5)])
+    rem = np.arange(66, dtype=np.float64)
+    rem_bits = (npo + mrm * (rem + mro) ** rm.mpm_remainder_pow) \
+        .astype(np.float32)
+    return np.float32(po), idx_bits, rem_bits
+
+
+@functools.lru_cache(maxsize=None)
+def _luma_consts(W, H, log2_ctu, sizes, device):
+    """Static per-geometry gather tables on the device (cached per
+    process, geometry and device)."""
+    consts = {}
+    ctu = 1 << log2_ctu
+    for s in sizes:
+        src, fill = refs.subst_gather(W, H, s, 0, log2_ctu)
+        pi, ni, keep = refs.filter121_indices(s)
+        top_mask = (np.arange(H // s) * s) % ctu == 0
+        consts[s] = tuple(torch.as_tensor(x, device=device) for x in (
+            src.astype(np.int64), fill, pi.astype(np.int64),
+            ni.astype(np.int64), keep, top_mask))
+    return consts
+
+
+def fused_luma_stage_a(planes, W, H, log2_ctu, sizes, K, trellis, ls, bd,
+                       lam_dq, lv, lam, mats, seltabs):
+    """The whole luma stage A for one chunk (the JAX `_fused_luma_builder`
+    run with on-device selection). planes: (F, H, W) uint8 on the device.
+    Returns {s: (ranked cands int8 (F, N, K+2), best cost f32 (F, N),
+    top-2 costs f32 (F, N, 2))}, all still on the device."""
+    F = planes.shape[0]
+    consts = _luma_consts(W, H, log2_ctu, sizes, planes.device)
+    planes = planes.to(torch.int32)
+    flat = planes.reshape(F, H * W)
+    sc, mb67, po, idx_bits, rem_bits = seltabs
+    out = {}
+    for s in sizes:
+        src, fill, pi, ni, keep, top_mask = consts[s]
+        N, L = src.shape
+        u = torch.where(fill[None, :, None], 128, flat[:, src])   # (F, N, L)
+        u = u.reshape(-1, L)
+        uf = torch.where(keep[None, :], u,
+                         (u[:, pi] + 2 * u + u[:, ni] + 2) >> 2)
+        v = torch.cat([u, uf], dim=1)
+        pred = intra_pred.predict_all_modes_m(v, mats[s], s)
+        blocks = planes.reshape(F, H // s, s, W // s, s) \
+            .permute(0, 1, 3, 2, 4).reshape(-1, s * s)
+        cands, cost = _stage_a_select(pred, blocks, K, ls[s], bd[s], lam_dq,
+                                      lv, s.bit_length() - 1, lam, trellis)
+        out[s] = _select_modes_dev(
+            cost.reshape(F, N, -1), cands.reshape(F, N, -1).long(), H // s,
+            W // s, top_mask, sc, mb67, po, idx_bits, rem_bits)
+    return out
+
+
+def _stage_a_select(pred, orig, num_cands, ls, bd_shift, lam_dq, lv, log2,
+                    lam, trellis=False):
+    """pred (N,67,WH), orig (N,WH) -> (cands (N,K+2) int8, cost (N,K+2)).
+
+    Cost is ssd + lam*rate WITHOUT mode bits. The top-K angular modes by
+    SAD keep the lower mode on equal SAD (jax.lax.top_k's rule), via a
+    stable ascending sort."""
+    sad = (pred - orig[:, None, :]).abs().sum(-1, dtype=torch.int32)
+    top = torch.sort(sad[:, 2:], dim=1, stable=True).indices[:, :num_cands]
+    N = sad.shape[0]
+    cands = torch.cat([torch.zeros((N, 1), dtype=top.dtype,
+                                   device=top.device),
+                       torch.ones((N, 1), dtype=top.dtype, device=top.device),
+                       top + 2], dim=1)                        # (N, K+2)
+    K = num_cands + 2
+    s = 1 << log2
+    p = pred.gather(1, cands[:, :, None].expand(-1, -1, s * s))
+    o = orig[:, None, :].expand(-1, K, -1)
+    ssd, rate = _rd_eval_inner(p.reshape(-1, s, s), o.reshape(-1, s, s),
+                               ls, bd_shift, lam_dq, lv, log2, trellis)
+    cost = transforms.fma(lam, rate.reshape(-1, K) / 16384.0,
+                          ssd.reshape(-1, K))
+    return cands.to(torch.int8), cost
+
+
+def _rd_eval_inner(pred, orig, ls, bd_shift, lam_dq, lv, log2,
+                   trellis=False):
+    """pred/orig (B,s,s) -> (ssd (B,) f32, rate (B,) f32). trellis=True
+    quantizes with the exact Viterbi (pass trellis-variant tables)."""
+    orig = orig.to(torch.int32)
+    pred = pred.to(torch.int32)
+    t = transforms.forward_impl(orig - pred)
+    if trellis:
+        q, rate = ktr.trellis_rate(t, ls, bd_shift, lam_dq, lv, log2)
+    else:
+        q, rate = kq.greedy_depquant(t, ls, bd_shift, lam_dq, log2, lv)
+    d = kq.dequantize(q, ls, bd_shift)
+    rec = torch.clamp(pred + transforms.inverse_impl(d), 0, 255)
+    e = rec - orig
+    ssd = (e * e).sum((1, 2), dtype=torch.int32)
+    return ssd.to(torch.float32), rate
