@@ -18,11 +18,26 @@ Run from the root of a checkout. Phases, each fatal on failure:
      counters reset just before and read just after each timed encode;
   5. a 2-frame CIF encode per config on the card equals the same encode
      on the CPU byte for byte, and the port's decoder reproduces the
-     card's reconstruction.
+     card's reconstruction; the same for the device commit engine on 2
+     frames at 96x64;
+  6. the device commit engine (commit_engine='device',
+     chroma_stage_a='native'): 16 CIF frames at QP 32, warm-up then timed
+     with the launch counters reset just before and read just after, K1
+     launched from trellis_rate_batch, decode == reconstruction, the
+     native engine's bytes and PSNR beside it; then the scan alone on
+     those frames, its first segment under
+     torch.cuda.set_sync_debug_mode("error") (no host-device sync inside
+     the step loop), its steps and wall time; again under torch.profiler
+     (the kernels' summed device time); again counting the PyTorch
+     operators it dispatches; again with CUDA events around
+     every K1 launch (summed device time, shapes); and K1 through
+     trellis_rate_batch against its plain twin at the scan's shapes,
+     with kernel-alone and plain times beside the bound.
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
 a CUDA device or outside a checkout of the repo. Imports nothing of JAX.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -288,11 +303,9 @@ def phase_main_path():
     import torch
     from wrenc_tpu_torch.decoder import decode_annexb
     from wrenc_tpu_torch.encoder import Encoder
-    from wrenc_tpu_torch.kernels import quantize, trellis
     from wrenc_tpu_torch.search import WavefrontSearch
     frames = synth_frames(16, *CIF, seed=1)
-    counters = {"dq_greedy": quantize.greedy_depquant,
-                "dq_trellis": trellis.trellis_rate}
+    counters = _counters()
     out = {}
     for tr, name in ((0, "default"), (1, "stage_a_trellis_rd=1")):
         cfg = _cfg(tr)
@@ -362,27 +375,306 @@ def phase_main_path():
 
 
 def phase_card_vs_cpu():
+    from wrenc_tpu_torch.core.config import EncoderConfig
     from wrenc_tpu_torch.decoder import decode_annexb
     from wrenc_tpu_torch.encoder import Encoder
     from wrenc_tpu_torch.search import WavefrontSearch
-    frames = synth_frames(2, *CIF, seed=5)
-    for tr in (0, 1):
-        cfg = _cfg(tr)
-        s_gpu, r_gpu = Encoder(cfg, search=WavefrontSearch(cfg)).encode(
-            frames)
+    cases = [(f"stage_a_trellis_rd={tr}", _cfg(tr), {}, CIF) for tr in (0, 1)]
+    cases.append(("commit_engine=device", EncoderConfig(
+        width=96, height=64, qp=32), DEVICE_ENGINE, (96, 64)))
+    for name, cfg, kw, size in cases:
+        frames = synth_frames(2, *size, seed=5)
+        s_gpu, r_gpu = Encoder(cfg, search=WavefrontSearch(
+            cfg, **kw)).encode(frames)
         t0 = time.perf_counter()
         s_cpu, _ = Encoder(cfg, search=WavefrontSearch(
-            cfg, device="cpu")).encode(frames)
+            cfg, device="cpu", **kw)).encode(frames)
         t_cpu = time.perf_counter() - t0
         if s_gpu != s_cpu:
-            raise AssertionError(f"trellis={tr}: card bytes != CPU bytes")
+            raise AssertionError(f"{name}: card bytes != CPU bytes")
         dec = decode_annexb(s_gpu)
         if not all((dec[k][c] == r_gpu[k][c]).all()
                    for k in range(2) for c in range(3)):
-            raise AssertionError(f"trellis={tr}: decode != reconstruction")
-        log(f"2-frame CIF encode, stage_a_trellis_rd={tr}: card bytes == "
+            raise AssertionError(f"{name}: decode != reconstruction")
+        log(f"2-frame {size[0]}x{size[1]} encode, {name}: card bytes == "
             f"CPU bytes ({len(s_gpu)} bytes; CPU encode {t_cpu:.1f} s), "
             f"decode == reconstruction")
+
+
+DEVICE_ENGINE = {"commit_engine": "device", "chroma_stage_a": "native"}
+
+
+def _counters():
+    from wrenc_tpu_torch.kernels import quantize, trellis
+    return {"dq_greedy": quantize.greedy_depquant,
+            "dq_trellis": trellis.trellis_rate,
+            "dq_trellis_batch": trellis.trellis_rate_batch}
+
+
+class _OpCount:
+    """Counts the PyTorch operators dispatched while it is entered."""
+
+    def __init__(self):
+        import collections
+        from torch.utils._python_dispatch import TorchDispatchMode
+        counts = self.counts = collections.Counter()
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counts[str(func.overloadpacket.__name__)] += 1
+                return func(*args, **(kwargs or {}))
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _scan(search, frames, debug_first=False, on_k1=None, profile=False,
+          count_ops=False):
+    """Stage A and the decide for `frames` (one chunk), then the device
+    commit alone: the schedule and the scan's set-up (host clock), and
+    the scan timed from its first step to its fetched result.
+    debug_first: run the first segment under the CUDA sync debug mode
+    "error", so any host-device synchronization in the step loop raises.
+    on_k1: called around each K1 launch inside the scan. profile: trace
+    the scan's kernels with torch.profiler (CUDA activity only) and
+    return their summed device time and each K1 kernel's device time, in
+    launch order. count_ops: count the PyTorch operators the step loop
+    dispatches."""
+    import torch
+    from wrenc_tpu_torch.kernels import trellis
+    from wrenc_tpu_torch.search import device_commit as dc
+    batch, trees, devp = search._decide_chunk(
+        search._dispatch_stage_a(frames))
+    t0 = time.perf_counter()
+    segs, has_ph = dc._build_schedule(search.cfg, trees)
+    t1 = time.perf_counter()
+    scan = dc.RdScan(search.cfg, len(batch), segs, has_ph, devp)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    steps = sum(len({r for rows in seg.values() for r in range(dc.SEG)
+                     if rows.off[r + 1] > rows.off[r]}) for seg in segs)
+    launch = trellis.launch_dq
+    if on_k1 is not None:
+        trellis.launch_dq = lambda *a: on_k1(launch, *a)
+    ctx = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if profile
+        else _OpCount() if count_ops else contextlib.nullcontext())
+    try:
+        with ctx as prof:
+            t3 = time.perf_counter()
+            for si in range(len(segs)):
+                if debug_first and si == 0:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    scan.run_segment(si)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            recons, _ = scan.finish()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t3
+    finally:
+        trellis.launch_dq = launch
+    out = {"seconds": dt, "schedule_seconds": t1 - t0,
+           "setup_seconds": t2 - t1, "steps": steps, "segments": len(segs),
+           "phantoms": has_ph}
+    if profile:
+        out["device_busy_seconds"] = sum(
+            getattr(e, "self_device_time_total", 0.0)
+            for e in prof.key_averages()) / 1e6
+        k1 = sorted((e for e in prof.events()
+                     if "dq_trellis_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+        out["k1_device_ms"] = [e.device_time_total / 1e3 for e in k1]
+    if count_ops:
+        out["ops"] = dict(prof.counts.most_common())
+    return out, recons
+
+
+def phase_device_commit(native_report):
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.decoder import decode_annexb
+    from wrenc_tpu_torch.encoder import Encoder
+    from wrenc_tpu_torch.search import WavefrontSearch
+    frames = synth_frames(16, *CIF, seed=1)
+    cfg = _cfg(0)
+    enc = Encoder(cfg, search=WavefrontSearch(cfg, **DEVICE_ENGINE))
+    t0 = time.perf_counter()
+    enc.encode(frames)                                     # warm-up
+    warm = time.perf_counter() - t0
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream, recons = enc.encode(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    if launches["dq_trellis_batch"] <= 0:
+        raise AssertionError("device engine: K1 never launched from "
+                             "trellis_rate_batch")
+    dec = decode_annexb(stream)
+    if len(dec) != len(frames) or not all(
+            (dec[k][c] == recons[k][c]).all()
+            for k in range(len(frames)) for c in range(3)):
+        raise AssertionError("device engine: decode != reconstruction")
+    mse = np.mean([(r[0].astype(np.float64) - f[0]) ** 2
+                   for r, f in zip(recons, frames)])
+    psnr = 10 * np.log10(255 ** 2 / mse)
+    phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
+    log(f"device engine: {len(frames)} CIF frames QP 32 in {dt:.3f} s = "
+        f"{len(frames) / dt:.3f} fps (warm-up {warm:.1f} s), {len(stream)} "
+        f"bytes, PSNR-Y {psnr:.2f} dB, launches {launches}; native engine "
+        f"(report only): {native_report['bytes']} bytes, PSNR-Y "
+        f"{native_report['psnr_y']:.2f} dB")
+    log(f"  phase_times (s): {json.dumps(phases)}")
+
+    # the scan alone: first segment under the sync debug mode, then timed
+    search = enc.search
+    sc, rec_scan = _scan(search, frames, debug_first=True)
+    if not all((rec_scan[k][c] == recons[k][c]).all()
+               for k in range(len(frames)) for c in range(3)):
+        raise AssertionError("device engine: scan alone != encode")
+    log(f"  scan alone: schedule {sc['schedule_seconds']:.3f} s, set-up "
+        f"{sc['setup_seconds']:.3f} s, then {sc['steps']} rank steps in "
+        f"{sc['segments']} segments (phantoms: {sc['phantoms']}) in "
+        f"{sc['seconds']:.3f} s = {sc['seconds'] / sc['steps'] * 1e3:.2f} "
+        f"ms per step; the first segment ran under the sync debug mode "
+        f"'error'")
+    shapes = []
+
+    def on_shape(launch, name, tf, *a):
+        shapes.append(tuple(tf.shape))
+        return launch(name, tf, *a)
+    prof, _ = _scan(search, frames, profile=True, on_k1=on_shape)
+    k1_ms = prof["k1_device_ms"]
+    if len(k1_ms) != len(shapes):
+        raise AssertionError(f"torch.profiler traced {len(k1_ms)} K1 "
+                             f"kernels of {len(shapes)} launches")
+    busy = prof["device_busy_seconds"]
+    sc["device_busy_seconds"] = busy
+    sc["profiled_seconds"] = prof["seconds"]
+    log(f"  scan under torch.profiler (CUDA activity): {prof['seconds']:.3f}"
+        f" s, kernels {busy:.3f} s = device busy "
+        f"{100 * busy / prof['seconds']:.1f} % of the profiled scan, "
+        f"{100 * busy / sc['seconds']:.1f} % of the unprofiled one"
+        if busy else "  scan under torch.profiler: no device time traced")
+    ops = _scan(search, frames, count_ops=True)[0]["ops"]
+    n_ops = sum(ops.values())
+    sc["ops_per_step"] = n_ops / sc["steps"]
+    sc["top_ops"] = dict(list(ops.items())[:12])
+    log(f"  scan step loop: {n_ops} PyTorch operators dispatched, "
+        f"{n_ops / sc['steps']:.0f} per step; most frequent: "
+        f"{json.dumps(sc['top_ops'])}")
+
+    # again, with CUDA events around every K1 launch: the device sits
+    # idle through most of the scan, so each pair also times the host's
+    # side of the launch (output allocation, parameters, the ctypes call)
+    events = []
+
+    def on_k1(launch, name, tf, *a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(name, tf, *a)
+        e1.record()
+        events.append((e0, e1))
+        return out
+    _scan(search, frames, on_k1=on_k1)
+    torch.cuda.synchronize()
+    hd_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+    log(f"  K1 inside the scan: {len(k1_ms)} launches, {sum(k1_ms):.3f} ms "
+        f"summed device time (torch.profiler), {sum(hd_ms):.3f} ms summed "
+        f"host+device time (CUDA events around each launch)")
+    return {"fps": len(frames) / dt, "seconds": dt, "warmup_seconds": warm,
+            "bytes": len(stream), "psnr_y": psnr, "launches": launches,
+            "phase_times": phases,
+            "native_engine": {k: native_report[k] for k in ("bytes",
+                                                            "psnr_y")},
+            "scan": dict(sc, k1_launches=len(k1_ms),
+                         k1_device_ms_sum=sum(k1_ms),
+                         k1_host_device_ms_sum=sum(hd_ms)),
+            "k1_shapes": shapes, "k1_ms": k1_ms, "k1_hd_ms": hd_ms}
+
+
+def phase_batch_check(dev):
+    """K1 through trellis_rate_batch against its plain twin on the card
+    at the scan's shapes (one job per size, the median batch of that
+    size's launches, per-row ls / bd_shift as the scan passes them), and
+    K1 alone at those shapes beside the plain time and the bound."""
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import transforms
+    from wrenc_tpu_torch.kernels import trellis as ktr
+    by_p = {}
+    for (P, B), ms, hd in zip(dev["k1_shapes"], dev["k1_ms"],
+                              dev["k1_hd_ms"]):
+        by_p.setdefault(P, []).append((B, ms, hd))
+    rng = np.random.default_rng(7)
+    _, lam, lv = _qcase(2, 32, True)
+    lam_d = kq.table(lam, torch.int32, "cuda")
+    lv_d = kq.table(lv, torch.float32, "cuda")
+    jobs, per_size = [], {}
+    for P in sorted(by_p):
+        log2 = (P.bit_length() - 1) // 2
+        s = 1 << log2
+        bs = sorted(b for b, _, _ in by_p[P])
+        B = bs[len(bs) // 2]
+        res = rng.integers(-24, 25, (B, s, s)).astype(np.int32)
+        t = transforms.forward_impl(torch.as_tensor(res, device="cuda"))
+        qps = rng.choice([32, 37], B)          # luma and chroma QP rows
+        ls, bd = (torch.as_tensor(np.array(
+            [getattr(_qcase(log2, int(q), True)[0], f) for q in qps],
+            np.int32), device="cuda") for f in ("ls", "bd_shift"))
+        jobs.append((t, ls, bd, log2))
+        tf = kq.to_coding_order(t, log2).T.contiguous()
+        ms = _time_ms(lambda: kq.launch_dq("dq_trellis", tf, ls, bd, lam_d,
+                                           lv_d), 21, per=10)
+        plain_ms = _time_ms(lambda: ktr.trellis_rate_plain(
+            t, ls, bd, lam_d, lv_d, log2), 1)
+        per_size[s] = {"P": P, "launches": len(by_p[P]), "B_median": B,
+                       "B_max": bs[-1], "ms_alone": ms, "plain_ms": plain_ms,
+                       "ms_in_scan_mean": float(np.mean(
+                           [m for _, m, _ in by_p[P]])),
+                       "host_device_ms_in_scan_mean": float(np.mean(
+                           [h for _, _, h in by_p[P]]))}
+    got = ktr.trellis_rate_batch(jobs, lam_d, lv_d)
+    want = ktr.trellis_rate_batch_plain(jobs, lam_d, lv_d)
+    torch.cuda.synchronize()
+    err = max(_err(g, w) for g, w in zip(got, want))
+    if err != 0:
+        raise AssertionError(f"trellis_rate_batch != plain: {err}")
+    log(f"trellis_rate_batch: K1 equal to the plain twin at the scan's "
+        f"shapes (sizes {sorted(per_size)})")
+
+    def bound(P, B):
+        nbytes = 4 * P * B * 2 + 12 * B + 8 * 1024
+        ops = OPS_PER_POS["dq_trellis"] * P * B
+        return nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+    b = [bound(P, B) for P, B in dev["k1_shapes"]]
+    n = len(b)
+    for s, row in per_size.items():
+        bb = bound(row["P"], row["B_median"])
+        row["bound_ms"] = max(bb)
+        log(f"  K1 s={s:2d} launches {row['launches']:5d}, B median "
+            f"{row['B_median']} max {row['B_max']}: in scan "
+            f"{row['ms_in_scan_mean']:.4f} ms device, "
+            f"{row['host_device_ms_in_scan_mean']:.4f} ms host+device, "
+            f"alone {row['ms_alone']:.4f} ms, plain {row['plain_ms']:.1f} "
+            f"ms, bound {max(bb):.5f} ms")
+    return {"err": err, "per_size": per_size,
+            "bytes_ms": sum(x for x, _ in b) / n,
+            "ops_ms": sum(y for _, y in b) / n,
+            "bound_ms": sum(max(x, y) for x, y in b) / n,
+            "plain_ms": sum(per_size[1 << ((P.bit_length() - 1) // 2)]
+                            ["plain_ms"] for P, _ in dev["k1_shapes"]) / n}
 
 
 def main():
@@ -410,26 +702,58 @@ def main():
     phase_fma()
     main_path = phase_main_path()
     phase_card_vs_cpu()
+    dev = phase_device_commit(main_path["default"])
+    batch = phase_batch_check(dev)
 
     replaces = {"dq_trellis": "wrenc_tpu/kernels/trellis_pallas.py:55",
                 "dq_greedy": "wrenc_tpu/kernels/quantize.py:136"}
     config_of = {"dq_trellis": "stage_a_trellis_rd=1",
                  "dq_greedy": "default"}
+    per_path = {p: main_path[p]["launches"] for p in main_path}
+    per_path["commit_engine=device"] = dev["launches"]
     kernels = []
     for name in ("dq_trellis", "dq_greedy"):
         r = rows[name]
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "entry": ("trellis_rate" if name == "dq_trellis"
+                                    else "greedy_depquant"),
+            "route": "cuda",
             "source": "wrenc_tpu_torch/kernels/csrc/dq_scan.cu",
             "replaces": replaces[name],
             "launches": main_path[config_of[name]]["launches"][name],
+            "launches_per_path": {p: v[name] for p, v in per_path.items()},
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": ("operations" if r["ops_ms"] >= r["bytes_ms"]
                          else "bytes"),
             "library_ms": None,
             "per_size": r["per_size"]})
+    # K1 on the device commit path: per launch, the mean over the scan's
+    # launches (device time traced by torch.profiler inside the scan;
+    # bound and plain time at each launch's size). host_device_ms: the
+    # same launches timed by CUDA events around the wrapper call.
+    scan = dev["scan"]
+    kernels.append({
+        "name": "dq_trellis", "entry": "trellis_rate_batch", "route": "cuda",
+        "source": "wrenc_tpu_torch/kernels/csrc/dq_scan.cu",
+        "replaces": "wrenc_tpu/kernels/trellis_pallas.py:296",
+        "launches": dev["launches"]["dq_trellis_batch"],
+        "launches_per_path": {p: v["dq_trellis_batch"]
+                              for p, v in per_path.items()
+                              if "dq_trellis_batch" in v},
+        "max_abs_err": batch["err"],
+        "ms": scan["k1_device_ms_sum"] / scan["k1_launches"],
+        "plain_ms": batch["plain_ms"], "bound_ms": batch["bound_ms"],
+        "bound_by": ("operations" if batch["ops_ms"] >= batch["bytes_ms"]
+                     else "bytes"),
+        "library_ms": None,
+        "ms_sum_in_scan": scan["k1_device_ms_sum"],
+        "host_device_ms": scan["k1_host_device_ms_sum"]
+        / scan["k1_launches"],
+        "per_size": batch["per_size"]})
+    dev = {k: v for k, v in dev.items() if not k.startswith("k1_")}
     log(f"main path: {json.dumps(main_path)}")
+    log(f"device engine: {json.dumps(dev)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -142,8 +142,11 @@ def test_kernel_wrappers_refuse_other_devices():
         quantize.greedy_depquant(t, 1, 1, lam, 2, lv)
     with pytest.raises(ValueError):
         trellis.trellis_rate(t, 1, 1, lam, lv, 2)
+    with pytest.raises(ValueError):
+        trellis.trellis_rate_batch([(t, 1, 1, 2)], lam, lv)
     assert quantize.greedy_depquant.launches == 0
     assert trellis.trellis_rate.launches == 0
+    assert trellis.trellis_rate_batch.launches == 0
 
 
 def test_tf32_off_at_import():

@@ -58,6 +58,7 @@ def _get():
         lib.wrenc_encode_slice.restype = ctypes.c_int64
         lib.wrenc_commit_frames_tree.restype = None
         lib.wrenc_chroma_stage_a.restype = None
+        lib.wrenc_cu_ranks2.restype = None
         _lib = lib
         return _lib
 
@@ -541,3 +542,18 @@ def decode_slice_native(p, payload, entry_lens=None):
     if rc != 0:
         return None
     return ry, rcb, rcr
+
+
+def cu_ranks_native(cu_meta, W, H):
+    """Commit-schedule dependency ranks (wrenc_cu_ranks2).
+
+    cu_meta: (N, 6) int32 [x, y, log2, is_phantom, ext_l, ext_t] in
+    coding order — ext flags mark AVAILABLE below-left / above-right
+    reference extensions (unavailable ones are never read, so they do
+    not constrain the schedule). Returns (N,) int32 ranks (1-based)."""
+    lib = _get()
+    m = np.ascontiguousarray(cu_meta, dtype=np.int32)
+    out = np.zeros(len(m), dtype=np.int32)
+    lib.wrenc_cu_ranks2(_i32p(m), ctypes.c_int64(len(m)),
+                        ctypes.c_int(W), ctypes.c_int(H), _i32p(out))
+    return out

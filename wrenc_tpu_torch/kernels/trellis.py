@@ -4,9 +4,12 @@ rate.
 `trellis_rate` has the semantics of wrenc_tpu/kernels/trellis_pallas.py::
 trellis_rate_impl (the repo's only Pallas kernel, `_kernel` launched by
 `_call`): stored levels identical to the sequential trellis, and the
-rate of those levels summed in f32 in ascending coding order. CUDA
-tensors launch the hand-written kernel K1 (`dq_trellis` in
-csrc/dq_scan.cu); CPU tensors take `trellis_rate_plain`.
+rate of those levels summed in f32 in ascending coding order.
+`trellis_rate_batch` is the same kernel's batched entry (JAX
+`trellis_rate_batch`), used by the device commit engine. CUDA tensors
+launch the hand-written kernel K1 (`dq_trellis` in csrc/dq_scan.cu); CPU
+tensors take the plain twins `trellis_rate_plain` /
+`trellis_rate_batch_plain`.
 """
 import torch
 
@@ -24,13 +27,69 @@ def trellis_rate(t, ls, bd_shift, lam_dq, lv_table, log2_n):
         return trellis_rate_plain(t, ls, bd_shift, lam_dq, lv_table, log2_n)
     if not t.is_cuda:
         raise ValueError(f"trellis_rate: unsupported device {t.device}")
-    tf = to_coding_order(t, log2_n).T.contiguous()        # (P, B)
-    q, rate = launch_dq("dq_trellis", tf, ls, bd_shift, lam_dq, lv_table)
+    out = _launch_k1(t, ls, bd_shift, lam_dq, lv_table, log2_n)
     trellis_rate.launches += 1
-    return from_coding_order(q.T, log2_n), rate
+    return out
 
 
 trellis_rate.launches = 0
+
+
+def _launch_k1(t, ls, bd_shift, lam_dq, lv_table, log2_n):
+    tf = to_coding_order(t, log2_n).T.contiguous()        # (P, B)
+    q, rate = launch_dq("dq_trellis", tf, ls, bd_shift, lam_dq, lv_table)
+    return from_coding_order(q.T, log2_n), rate
+
+
+def trellis_rate_batch(jobs, lam_dq, lv_table):
+    """Several block sizes in one wave. jobs: list of (t (B, n, n) int32,
+    ls, bd_shift, log2_n) with ls / bd_shift scalars or (B,) per block.
+    Returns [(q (B, n, n) int16, rate (B,) f32)] in job order, values
+    identical to trellis_rate per job.
+
+    On CUDA tensors K1 is launched once per distinct size, with per-block
+    ls / bd_shift. The JAX entry shares one edge-ingredient precompute
+    across sizes (`build_rate_tabs`: index-shifted tables for a one-hot
+    MXU rate lookup, because gathers are slow on a TPU); K1 needs no
+    counterpart of it, since each thread computes its four candidates
+    from the 1024-entry tables staged in shared memory. CPU tensors take
+    trellis_rate_batch_plain."""
+    if all(j[0].device.type == 'cpu' for j in jobs):
+        return trellis_rate_batch_plain(jobs, lam_dq, lv_table)
+    if not all(j[0].is_cuda for j in jobs):
+        raise ValueError("trellis_rate_batch: unsupported device "
+                         f"{sorted({str(j[0].device) for j in jobs})}")
+    out = [None] * len(jobs)
+    for lg in sorted({j[3] for j in jobs}):
+        idx = [i for i, j in enumerate(jobs) if j[3] == lg]
+        ts = [jobs[i][0] for i in idx]
+        dev = ts[0].device
+        ls = torch.cat([_rows(jobs[i][1], t.shape[0], dev)
+                        for i, t in zip(idx, ts)])
+        bd = torch.cat([_rows(jobs[i][2], t.shape[0], dev)
+                        for i, t in zip(idx, ts)])
+        q, rate = _launch_k1(torch.cat(ts), ls, bd, lam_dq, lv_table, lg)
+        trellis_rate_batch.launches += 1
+        off = 0
+        for i, t in zip(idx, ts):
+            n = t.shape[0]
+            out[i] = (q[off:off + n], rate[off:off + n])
+            off += n
+    return out
+
+
+trellis_rate_batch.launches = 0
+
+
+def _rows(v, B, device):
+    """A scalar or (B,) quant parameter as a (B,) int32 tensor."""
+    return param_rows(v, B, device).expand(B)
+
+
+def trellis_rate_batch_plain(jobs, lam_dq, lv_table):
+    """Plain twin of trellis_rate_batch: trellis_rate_plain per job."""
+    return [trellis_rate_plain(t, ls, bd, lam_dq, lv_table, lg)
+            for t, ls, bd, lg in jobs]
 
 
 def trellis_rate_plain(t, ls, bd_shift, lam_dq, lv_table, log2_n):

@@ -1,0 +1,919 @@
+"""Device RD commit engine in PyTorch (`commit_engine='device'`).
+
+Counterpart of the RD half of wrenc_tpu/search/device_commit.py: the
+native C++ RdCommitter's re-decision discipline (block_splitter.rs:110
+true-reconstruction decisions) run as a rank wavefront on the device.
+Each rank step re-ranks every CU's stage-A candidate list by full
+trellis RD (kernel K1 through `kernels/trellis.trellis_rate_batch`) with
+the exact MPM-aware mode-bit model read from an evolving device mode map,
+re-decides derived-vs-CCLM chroma, and scatters reconstruction and
+coefficients. Refine-flagged QT splits are resolved in-scan: the merged
+leaf rides the wavefront as a PHANTOM ranked with its region's last
+contributor, every committed CU adds its cost into a per-4x4-cell cost
+plane, and at the phantom's step the device compares the region's
+accumulated split cost with the merged leaf's and, when the leaf wins,
+overwrites the region (block_splitter.rs:1079-1152).
+
+The JAX `lax.scan` becomes an eager Python loop over rank steps. The host
+knows every step's live rows from the schedule, so each class is trimmed
+to them: no padded rows, no pad slot in the planes, and no two rows of
+one scatter share a target. A row that must not write (a phantom, or a
+phantom that lost) rewrites the values it reads back, so every scatter is
+a deterministic index_put_. Nothing in the step loop waits for the
+device; the small per-step outputs and the planes are fetched once after
+the loop. The apply-decisions prototype `commit_frame_device` of the JAX
+module is not ported (ROADMAP.md queue 1 item 2).
+"""
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..entropy import native
+from ..kernels import intra_pred, quantize as kq, refs, transforms
+from ..kernels import trellis as ktr
+from ..spec import quant
+
+BIG_COST = np.float32(3e38)
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(W, H, s, c_idx, log2_ctu):
+    """Static per-size tables: substitution gather rows, fill flags,
+    filter indices, block scatter rows, availability masks."""
+    src, fill = refs.subst_gather(W, H, s, c_idx, log2_ctu)
+    pi, ni, keep = refs.filter121_indices(s)
+    sh = 0 if c_idx == 0 else 1
+    w = W >> sh
+    xs, ys = refs.block_grid(W, H, s, c_idx)
+    n_bw = w // s
+    scat = (ys[:, None, None] + np.arange(s)[None, :, None]) * w \
+        + (xs[:, None, None] + np.arange(s)[None, None, :])
+    masks = refs.avail_masks(W, H, s, c_idx, log2_ctu)
+    return (src.astype(np.int32), fill, pi, ni, keep,
+            scat.reshape(len(xs), -1).astype(np.int32), n_bw, masks,
+            xs.astype(np.int32), ys.astype(np.int32))
+
+
+def _cost16384(ssd, level, mb16384, lam):
+    """ssd + lam * ((level + mb) / 16384) in f32 (C++: the same in f64).
+    XLA contracts the multiply-add into one FMA; `transforms.fma` rounds
+    once the same way. lam: a 0-d f32 tensor on the device."""
+    return transforms.fma(lam, (level + mb16384) / 16384.0,
+                          ssd.to(torch.float32))
+
+
+def _sel_modes(pall, cl):
+    """Per-candidate predictions from the 67-mode sweep: pall (N, 67, P),
+    cl (N, K) -> (N, K, P), an exact gather."""
+    return pall.gather(1, cl[:, :, None].expand(-1, -1, pall.shape[2]))
+
+
+def _sel_win(arr, win):
+    """arr (N, K, ...), win (N,) -> (N, ...): each row's winner."""
+    idx = win.reshape((-1, 1) + (1,) * (arr.ndim - 2))
+    return torch.take_along_dim(arr, idx, dim=1)[:, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_table(W, H, s, log2_ctu):
+    """(N, (s/4)^2) flat 4x4-cell indices of each aligned luma block — the
+    mode-map scatter rows (RdCommitter::set_mode_map granularity)."""
+    xs, ys = refs.block_grid(W, H, s, 0)
+    n4w = W >> 2
+    n4 = max(s >> 2, 1)
+    d = np.arange(n4)
+    rows = ((ys[:, None, None] >> 2) + d[None, :, None]) * n4w \
+        + (xs[:, None, None] >> 2) + d[None, None, :]
+    return rows.reshape(len(xs), -1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _mpm_bits16384(key_consts):
+    """(67, 67, 67) f32 table of trunc(mode_bits * 16384) for coding `mode`
+    given (left, above) neighbour modes — computed in float64 exactly as
+    the native committer (RdCommitter::luma_mode_bits) so the int64
+    truncation matches bit-for-bit (values < 2^24, exact in f32)."""
+    (po, npo, mio, mip, mrm, mro, mrp) = key_consts
+    from ..entropy.syntax import derive_mpm_list
+    modes = np.arange(67, dtype=np.float64)
+    T = np.empty((67, 67, 67), dtype=np.float32)
+    for l in range(67):
+        for a in range(67):
+            cand = derive_mpm_list(l, a)
+            srt = np.sort(cand)
+            rem = modes - 1 - np.searchsorted(srt, modes, side='left')
+            row = npo + mrm * (rem + mro) ** mrp
+            for idx, m in reversed(list(enumerate(cand))):
+                row[m] = npo + (idx + mio) ** mip
+            row[0] = po
+            T[l, a] = np.trunc(row * 16384.0)
+    return T
+
+
+SEG = 64          # ranks per scan segment
+
+
+def _carry_init(W, H, F, device):
+    """Reconstruction planes (int32), mode map, cost plane and coefficient
+    planes (int16), flat per frame. No pad slot: no row writes one."""
+    HW, hw = H * W, (H // 2) * (W // 2)
+    n4 = (W >> 2) * (H >> 2)
+
+    def z(n, dt):
+        return torch.zeros((F, n), dtype=dt, device=device)
+    return [z(HW, torch.int32), z(hw, torch.int32), z(hw, torch.int32),
+            z(n4, torch.int32), z(n4, torch.float32),
+            z(HW, torch.int16), z(hw, torch.int16), z(hw, torch.int16)]
+
+
+def _carry_final(carry):
+    """Fetch-side dtypes: recon uint8, coefficients int16."""
+    ry, rcb, rcr, mm, cp, cy, ccb, ccr = carry
+    return (ry.to(torch.uint8), rcb.to(torch.uint8), rcr.to(torch.uint8),
+            cy, ccb, ccr)
+
+
+def _put(plane, bf, rows, val, keep=None):
+    """plane[bf, rows] = val for (n,) frames and (n, k) rows whose targets
+    are distinct. Rows with keep False write back what they read."""
+    if keep is not None:
+        val = torch.where(keep.reshape((-1,) + (1,) * (val.ndim - 1)), val,
+                          plane[bf[:, None], rows])
+    plane[bf[:, None], rows] = val.to(plane.dtype)
+
+
+def _add_at(plane, bf, cell, val, keep=None):
+    """plane[bf, cell] += val for (n,) distinct cells (none where keep is
+    False)."""
+    _put(plane, bf, cell[:, None], (plane[bf, cell] + val)[:, None], keep)
+
+
+def _region_sum(v):
+    """Row sums of a (n, k) f32 cost patch, k in {4, 16, 64}, in the order
+    the JAX reference gets from XLA on the CPU: up to 32 columns one after
+    another; 64 as two sequential halves of 32, then their sum."""
+    n, k = v.shape
+    parts = v.reshape(n, -1, min(k, 32))
+    acc = parts[:, :, 0]
+    for j in range(1, parts.shape[2]):
+        acc = acc + parts[:, :, j]
+    out = acc[:, 0]
+    for j in range(1, acc.shape[1]):
+        out = out + acc[:, j]
+    return out
+
+
+def _build_v(plane, bf, bi, g):
+    """Substituted, [1 2 1]-filtered reference vectors (n, 2L) read from
+    the evolving reconstruction."""
+    src, fill, pi, ni, keep = g['src'], g['fill'], g['pi'], g['ni'], g['keep']
+    u = torch.where(fill[bi][:, None], 128, plane[bf[:, None], src[bi]])
+    uf = torch.where(keep[None, :], u,
+                     (u[:, pi] + 2 * u + u[:, ni] + 2) >> 2)
+    return torch.cat([u, uf], dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _geo_dev(W, H, s, c_idx, log2_ctu, device):
+    """_geometry (and the cell table for luma) on the device."""
+    (src, fill, pi, ni, keep, scat, n_bw, masks, xs,
+     ys) = _geometry(W, H, s, c_idx, log2_ctu)
+
+    def t(a, dt=torch.int64):
+        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+    g = {'src': t(src), 'fill': t(fill, torch.bool), 'pi': t(pi),
+         'ni': t(ni), 'keep': t(keep, torch.bool), 'scat': t(scat),
+         'masks': t(masks, torch.int32), 'xs': t(xs, torch.int32),
+         'ys': t(ys, torch.int32)}
+    if c_idx == 0:
+        g['cells'] = t(_cell_table(W, H, s, log2_ctu))
+    return g
+
+
+def _collect_leaf_cus(trees):
+    """Coding-order (cu, is_phantom) pairs. Each refine node contributes
+    its split subtree's CUs normally plus its merged-leaf alternative
+    (alt_cu) as a PHANTOM appended after the subtree: phantoms are
+    evaluated by the scan (full candidate ranking + chroma re-decision)
+    and scatter ONLY when their in-scan cost comparison picks the
+    merged leaf over the region's accumulated split cost."""
+    out = []
+
+    def walk(n):
+        if getattr(n, 'refine', False):
+            for c in n.children:
+                walk(c)
+            out.append((n.alt_cu, True))
+        elif n.split:
+            for c in n.children:
+                walk(c)
+        elif n.cu is not None:
+            out.append((n.cu, False))
+    for t in trees:
+        walk(t)
+    return out
+
+
+def _cu_ranks(cus, W, H, log2_ctu=5):
+    """Dependency rank per (cu, is_phantom) over 4x4 cells
+    (WavefrontSearch._commit discipline). A normal CU ranks strictly
+    after everything it reads: max(windows, own) + 1. A PHANTOM
+    (merged-leaf refine alternative) reads only its OUTSIDE reference
+    samples and its region's accumulated costs — never its children's
+    pixels — so it SHARES the rank of its region's last contributor:
+    max(windows + 1, own). The in-scan resolver's phase-4 class order
+    ('C' < 'S' ascending size; 'L' adds in phase 2) makes every
+    same-step region contribution visible before the phantom resolves.
+    Phantoms write the grid (dependents rank after resolution and read
+    the RESOLVED reconstruction — the visibility the native DFS
+    rollback gives its sequential successors) with ZERO rank-depth
+    inflation vs a phantom-free schedule.
+
+    The left/above dependency windows extend to 2x the block span only
+    where the below-left / above-right reference samples are AVAILABLE
+    (spec 6.4.4; unavailable samples are substitution-masked and never
+    read) — exact-availability windows shorten the critical rank chains
+    substantially vs the conservative geometric windows."""
+    n = len(cus)
+    xs_ = np.fromiter((cu.x for cu, ph in cus), np.int64, n)
+    ys_ = np.fromiter((cu.y for cu, ph in cus), np.int64, n)
+    lg_ = np.fromiter((cu.log2 for cu, ph in cus), np.int64, n)
+    ph_ = np.fromiter((1 if ph else 0 for cu, ph in cus), np.int64, n)
+    ext_l = np.zeros(n, np.int64)
+    ext_t = np.zeros(n, np.int64)
+    for lg in np.unique(lg_):
+        s = 1 << int(lg)
+        sel = lg_ == lg
+        masks = refs.avail_masks(W, H, s, 0, log2_ctu)
+        bi = (ys_[sel] // s) * (W // s) + xs_[sel] // s
+        ext_l[sel] = masks[bi, 1 + s]
+        ext_t[sel] = masks[bi, 1 + 3 * s]
+    meta = np.stack([xs_, ys_, lg_, ph_, ext_l, ext_t],
+                    axis=1).astype(np.int32)
+    return native.cu_ranks_native(meta, W, H)
+
+
+class Rows(NamedTuple):
+    """One class's rows of one segment, ordered by (rank step, fill order):
+    fields {'valid', 'bf', 'bi'[, 'cands'][, 'ph']} of (n, ...) arrays,
+    off (SEG + 1) offsets so that step r's rows are [off[r], off[r+1]),
+    n_ph (SEG) phantoms per step, cus the n (cu, is_phantom) pairs."""
+    fields: dict
+    off: list
+    n_ph: list
+    cus: list
+
+
+def _build_schedule(cfg, all_trees):
+    """Compact per-class worklists for the scan, split into SEG-rank
+    segments.
+
+    Returns (segments, has_ph): segments a list of {class: Rows} holding
+    only the classes with rows in that segment. A class is ('C', 3),
+    ('L', log2) or ('S', log2); within a rank step its rows keep the fill
+    order frame by frame, coding order within a frame. has_ph is True when
+    ANY refine phantom exists in the schedule; 'S' classes then carry a
+    'ph' field for the in-scan resolution. Frame indices are int32."""
+    W, H = cfg.width, cfg.height
+    items = {}          # class -> list of (rank, f, cu, is_phantom)
+    R = 0
+    for f, trees in enumerate(all_trees):
+        cus = _collect_leaf_cus(trees)
+        ranks = _cu_ranks(cus, W, H, cfg.log2_ctu_size)
+        R = max(R, int(ranks.max()) if len(ranks) else 0)
+        for (cu, ph), r in zip(cus, ranks):
+            ck = ('C', 3) if cu.tree == 'C' else (cu.tree, cu.log2)
+            items.setdefault(ck, []).append((int(r) - 1, f, cu, ph))
+    n_cand = max([len(lst[0][2].cands) for ck, lst in items.items()
+                  if ck[0] != 'C'] + [1])
+    has_ph = any(e[3] for lst in items.values() for e in lst)
+
+    segments = [{} for _ in range(-(-R // SEG))]
+    for ck in sorted(items):
+        tree, log2 = ck
+        lst = sorted(items[ck], key=lambda e: e[0])          # stable
+        n = len(lst)
+        r_a = np.fromiter((e[0] for e in lst), np.int64, n)
+        ph_a = np.fromiter((e[3] for e in lst), bool, n)
+        gs = 8 if tree == 'C' else 1 << log2
+        fields = {
+            'valid': ~ph_a,
+            'bf': np.fromiter((e[1] for e in lst), np.int32, n),
+            'bi': np.fromiter(((e[2].y // gs) * (W // gs) + e[2].x // gs
+                               for e in lst), np.int32, n)}
+        if tree != 'C':
+            fields['cands'] = np.full((n, n_cand), -1, np.int8)
+            cl = np.array([e[2].cands for e in lst], np.int8)
+            fields['cands'][:, :cl.shape[1]] = cl
+        if has_ph and tree == 'S':
+            fields['ph'] = ph_a
+        bounds = np.searchsorted(r_a, np.arange(len(segments) + 1) * SEG)
+        for si, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+            if a == b:
+                continue
+            rl = r_a[a:b] - si * SEG
+            seg_fields = {f: v[a:b] for f, v in fields.items()}
+            _check_targets(ck, rl, seg_fields['bf'], seg_fields['bi'],
+                           has_ph)
+            off = np.zeros(SEG + 1, np.int64)
+            off[1:] = np.cumsum(np.bincount(rl, minlength=SEG))
+            n_ph = np.bincount(rl, weights=ph_a[a:b], minlength=SEG)
+            segments[si][ck] = Rows(
+                seg_fields, off.tolist(), n_ph.astype(np.int64).tolist(),
+                [(e[2], e[3]) for e in lst[a:b]])
+    return segments, has_ph
+
+
+def _check_targets(ck, steps, bf, bi, has_ph):
+    """A class's rows scatter to their own block: no two rows of one
+    index_put_ (a step's with phantoms; else the whole segment's, for the
+    post-segment coefficient scatter) may name the same block of the same
+    frame."""
+    key = np.stack([steps if has_ph else np.zeros_like(steps), bf, bi],
+                   axis=1)
+    if len(np.unique(key, axis=0)) != len(key):
+        raise RuntimeError(f"commit schedule: class {ck} repeats a scatter "
+                           "target")
+
+
+def _apply_refine_flags(all_trees, use_map):
+    """Rewrite every refine node to the winner the DEVICE picked in-scan
+    (use_map: id(alt_cu) -> merged leaf won). The comparison itself —
+    min(split subtree, merged leaf) with header costs, nested refines
+    bottom-up, ties keeping the split — ran on the cost plane inside the
+    scan (the device analog of RdCommitter::commit_tree's
+    snapshot/rollback; block_splitter.rs:1079-1152); the host only
+    mirrors the recorded decisions into the tree structure. An outer
+    winning leaf discards its children's (already applied) inner
+    rewrites, matching the device's later-write-wins scatter order."""
+    def walk(n):
+        if getattr(n, 'refine', False):
+            for c in n.children:
+                walk(c)
+            n.refine = False
+            if use_map.get(id(n.alt_cu), False):
+                n.split = False
+                n.cu = n.alt_cu
+                n.children = []
+            n.alt_cu = None
+        elif n.split:
+            for c in n.children:
+                walk(c)
+    for trees in all_trees:
+        for t in trees:
+            walk(t)
+
+
+def commit_frames_device_rd(cfg, origs, all_trees, dev_planes):
+    """Re-decision commit of every frame's tree on the device, one scan.
+
+    Same decision discipline as the native RdCommitter at the production
+    operating point (rank_full + rank_trellis + chroma redecide + split
+    refinement), with f32 costs (the C++ uses f64), and byte-identical to
+    the JAX engine. dev_planes: the (y, cb, cr) uint8 (F', H*W / H*W/4)
+    planes of the F = len(origs) frames (F' >= F), already on the device
+    that runs the scan. Updates cu.luma_mode/chroma_mode/coeffs and the
+    tree structure in place; returns per-frame (ry, rcb, rcr)."""
+    segments, has_ph = _build_schedule(cfg, all_trees)
+    scan = RdScan(cfg, len(origs), segments, has_ph, dev_planes)
+    for si in range(len(segments)):
+        scan.run_segment(si)
+    recons, use_map = scan.finish()
+    if has_ph:
+        _apply_refine_flags(all_trees, use_map)
+    return recons
+
+
+class RdScan:
+    """One pass of the rank wavefront over a segmented schedule: the
+    device constants and carry, then `run_segment` for each segment in
+    order (no host-device synchronization inside), then `finish` (one
+    fetch; writes modes and coefficients into the CU objects)."""
+
+    def __init__(self, cfg, F, segments, has_ph, dev_planes):
+        W, H = self.W, self.H = cfg.width, cfg.height
+        self.cfg = cfg
+        self.segments = segments
+        self.has_ph = has_ph
+        self.cclm = bool(cfg.cclm_enabled)
+        self.log2_ctu = cfg.log2_ctu_size
+        self.F = F
+        dev = dev_planes[0].device
+        self.oy, self.ocb, self.ocr = (p[:F].to(torch.int32)
+                                       for p in dev_planes)
+        self._consts(cfg, dev)
+        self.geo = {}
+        self.mats = {}
+        for seg in segments:
+            for tree, log2 in seg:
+                s = 1 << log2
+                if tree != 'C':
+                    self.geo[(tree, log2, 0)] = _geo_dev(
+                        W, H, s, 0, self.log2_ctu, dev)
+                    self.mats[('y', s)] = intra_pred.mats_device_f32(s, 0,
+                                                                     dev)
+                if tree != 'L':
+                    cs = s >> 1 if tree == 'S' else 4
+                    self.geo[(tree, log2, 1)] = _geo_dev(
+                        W, H, cs, 1, self.log2_ctu, dev)
+                    self.mats[('c', cs)] = intra_pred.mats_device_f32(cs, 1,
+                                                                      dev)
+        self.rows = [{ck: {f: _upload(a, dev).to(
+                          torch.bool if a.dtype == bool else torch.int64)
+                           for f, a in rows.fields.items()}
+                      for ck, rows in seg.items()} for seg in segments]
+        self.carry = _carry_init(W, H, F, dev)
+        self.ys = [None] * len(segments)
+
+    def _consts(self, cfg, dev):
+        """QP / rate-model tables and scalars on the device."""
+        rm = cfg.rate_model
+        dep = cfg.dep_quant_enabled
+        qp = cfg.qp
+        qp_c = quant.chroma_qp_from_luma(qp)
+        self.ls_tab = np.zeros((2, 4), np.int32)
+        self.bd_tab = np.zeros((2, 4), np.int32)
+        for c in (0, 1):
+            for lg in (2, 3, 4, 5):
+                qpar = quant.derive_quant_params(
+                    qp if c == 0 else qp_c, lg, lg, dep_quant=dep,
+                    transform_skip=False)
+                self.ls_tab[c, lg - 2] = qpar.ls
+                self.bd_tab[c, lg - 2] = qpar.bd_shift
+        key = (rm.pick('planar_offset', dep, True),
+               rm.pick('non_planar_offset', dep, True),
+               rm.pick('mpm_idx_offset', dep, True), rm.mpm_idx_pow,
+               rm.pick('mpm_remainder_mult', dep, True),
+               rm.pick('mpm_remainder_offset', dep, True),
+               rm.mpm_remainder_pow)
+        self.T = _dev_table(key, dev)
+        lam = np.float32(2.0 ** (qp / rm.pick('qp_div', dep, True))
+                         * rm.pick('lambda_mul', dep, True))
+        co = rm.pick('cclm_offset', dep, True)
+        cio = rm.pick('cclm_mode_idx_offset', dep, True)
+        cclm_mb = np.float32([int((co + (i + cio) ** rm.cclm_pow) * 16384.0)
+                              for i in range(3)])
+        self.ncc = float(np.float32(
+            int(rm.pick('non_cclm_offset', dep, True) * 16384.0)
+            if cfg.cclm_enabled else 0.0))
+        # per-CU header-cost constants for the in-scan refine compare
+        hdr_s = float(lam) * rm.pick('header_bits', dep, True)
+        self.hdr = [float(h) for h in np.float32(
+            [hdr_s, hdr_s / 3.0,
+             float(lam) * rm.pick('chroma_header_bits', dep, True)])]
+        self.lam = _upload(np.asarray(lam, np.float32), dev)
+        self.cclm_mb = _upload(cclm_mb, dev)
+        self.lam_dq = _upload(kq.lam_dq_table(rm, qp, trellis=True), dev)
+        self.lv = _upload(kq.lv_table_device(rm, dep, True), dev)
+
+    # ------------------------------------------------------------ the scan
+    def run_segment(self, si):
+        """Every rank step of segment si, in order."""
+        seg, rows = self.segments[si], self.rows[si]
+        out = {ck: [] for ck in seg}
+        for r in range(SEG):
+            live = {}
+            for ck, sr in seg.items():
+                a, b = sr.off[r], sr.off[r + 1]
+                if b > a:
+                    live[ck] = ({f: t[a:b] for f, t in rows[ck].items()},
+                                sr.n_ph[r])
+            if live:
+                for ck, o in self._step(live).items():
+                    out[ck].append(o)
+        if not self.has_ph:
+            self._post_segment(rows, out)
+        self.ys[si] = {ck: {f: torch.cat([o[f] for o in lst])
+                            for f in lst[0] if f in ('mode', 'cmode',
+                                                     'use')}
+                       for ck, lst in out.items() if lst}
+
+    def _step(self, live):
+        """One rank step over the live rows of every class, in the JAX
+        scan body's four parts: wave A, phase 2, wave B, phase 4. The
+        classes are visited sorted ('C' < 'L' < 'S', sizes ascending):
+        phase 4 relies on that order (see _cu_ranks)."""
+        W, H = self.W, self.H
+        ry, rcb, rcr, mm, cp, cy, ccb, ccr = self.carry
+        HWc = (H // 2, W // 2)
+        hdrS, hdrL, hdrC = self.hdr
+        classes = sorted(live)
+        # ---- wave A: luma + derived-chroma predictions against the carry
+        # reconstruction (same-rank CUs are never neighbours), then one
+        # trellis-RD chain per distinct block size
+        A = {}
+        pre = {}
+        for ck in classes:
+            tree, log2 = ck
+            x, _n_ph = live[ck]
+            n = x['bf'].shape[0]
+            s = 1 << log2
+            cs = (s >> 1) if tree == 'S' else 4
+            lgc = cs.bit_length() - 1
+            bf, bi = x['bf'], x['bi']
+            d = {'cs': cs, 'n': n}
+            if tree != 'C':
+                g = self.geo[(tree, log2, 0)]
+                cl = x['cands'].clamp(0, 66)
+                pall = intra_pred.predict_all_modes_m(
+                    _build_v(ry, bf, bi, g), self.mats[('y', s)], s)
+                p6 = _sel_modes(pall, cl)
+                orig = self.oy[bf[:, None], g['scat'][bi]]
+                K = cl.shape[1]
+                d['cl'] = cl
+                d['luma'] = self._push(A, log2, p6.reshape(-1, s * s),
+                                       orig[:, None].expand(n, K, s * s)
+                                       .reshape(-1, s * s), 0)
+            if tree != 'L':
+                gc = self.geo[(tree, log2, 1)]
+                vcb = _build_v(rcb, bf, bi, gc)
+                vcr = _build_v(rcr, bf, bi, gc)
+                d['ocb'] = self.ocb[bf[:, None], gc['scat'][bi]]
+                d['ocr'] = self.ocr[bf[:, None], gc['scat'][bi]]
+                mc = self.mats[('c', cs)]
+                if tree == 'S':
+                    K = d['cl'].shape[1]
+                    for comp, v in (('cb', vcb), ('cr', vcr)):
+                        p6c = _sel_modes(intra_pred.predict_all_modes_m(
+                            v, mc, cs), d['cl'])
+                        o6 = d['o' + comp][:, None].expand(n, K, cs * cs)
+                        d[comp] = self._push(A, lgc, p6c.reshape(-1, cs * cs),
+                                             o6.reshape(-1, cs * cs), 1)
+                else:
+                    # SCIPU chroma: derived from the centre child
+                    bx8 = (bi % (W // 8)) * 8
+                    by8 = (bi // (W // 8)) * 8
+                    ci = ((by8 + 4) >> 2) * (W >> 2) + ((bx8 + 4) >> 2)
+                    derived = mm[bf, ci]
+                    d['derived'] = derived
+                    d['cb'] = self._push(
+                        A, 2, intra_pred.predict_modes_m(vcb, derived, mc),
+                        d['ocb'], 1)
+                    d['cr'] = self._push(
+                        A, 2, intra_pred.predict_modes_m(vcr, derived, mc),
+                        d['ocr'], 1)
+            pre[ck] = d
+        resA = self._tq_all(A)
+
+        # ---- phase 2: luma ranking + scatters + mode map; derived chroma
+        # costs kept for the CCLM comparison
+        out = {}
+        for ck in classes:
+            tree, log2 = ck
+            x, n_ph = live[ck]
+            d = pre[ck]
+            n = d['n']
+            bf, bi = x['bf'], x['bi']
+            keep = x['valid'] if n_ph else None
+            s = 1 << log2
+            cs = d['cs']
+            o = {}
+            if tree != 'C':
+                g = self.geo[(tree, log2, 0)]
+                qy, recy, ssd, level = _got(resA, d['luma'])
+                K = d['cl'].shape[1]
+                n4w = W >> 2
+                nbw = W // s
+                bx = (bi % nbw) * s
+                by = (bi // nbw) * s
+                li = ((by + s - 1) >> 2) * n4w + ((bx - 1) >> 2)
+                ai = ((by - 1) >> 2) * n4w + ((bx + s - 1) >> 2)
+                lm = torch.where(bx > 0, mm[bf, li.clamp(min=0)], 0)
+                am = torch.where((by & ((1 << self.log2_ctu) - 1)) != 0,
+                                 mm[bf, ai.clamp(min=0)], 0)
+                mb = self.T[lm[:, None].long(), am[:, None].long(), d['cl']]
+                cost_y_mat = _cost16384(ssd.reshape(n, K),
+                                        level.reshape(n, K), mb, self.lam)
+                cost = cost_y_mat
+                if tree == 'S':
+                    qcb, reccb, ssdcb, lvlcb = _got(resA, d['cb'])
+                    qcr, reccr, ssdcr, lvlcr = _got(resA, d['cr'])
+                    ssd_c = (ssdcb + ssdcr).reshape(n, K)
+                    lvl_c = (lvlcb + lvlcr).reshape(n, K)
+                    cost = cost + _cost16384(ssd_c, lvl_c, 0.0, self.lam)
+                cost = torch.where(x['cands'] < 0, float(BIG_COST), cost)
+                win = cost.argmin(1)                      # first index
+                m_win = _sel_win(d['cl'], win)
+                qy_w = _sel_win(qy.reshape(n, K, -1), win)
+                recy_w = _sel_win(recy.reshape(n, K, -1), win)
+                rows = g['scat'][bi]
+                _put(ry, bf, rows, recy_w, keep)
+                crow = g['cells'][bi]
+                _put(mm, bf, crow, m_win[:, None].expand(crow.shape), keep)
+                o['mode'] = m_win.to(torch.int8)
+                if self.has_ph:
+                    # in-step coefficient scatter (a later phantom must be
+                    # able to overwrite these rows in scan order)
+                    _put(cy, bf, rows, qy_w, keep)
+                else:
+                    o['qy'] = qy_w
+                cost_w = _sel_win(cost_y_mat, win)
+                if tree == 'L' and self.has_ph:
+                    # L CUs cannot be phantoms: their cost goes into the
+                    # cost plane here
+                    _add_at(cp, bf, g['cells'][bi, 0], cost_w + hdrL)
+                if tree == 'S':
+                    d['cost_y_w'] = cost_w
+                    d['qcb_w'] = _sel_win(qcb.reshape(n, K, -1), win) \
+                        .reshape(n, cs, cs)
+                    d['qcr_w'] = _sel_win(qcr.reshape(n, K, -1), win) \
+                        .reshape(n, cs, cs)
+                    d['rcb_w'] = _sel_win(reccb.reshape(n, K, -1), win)
+                    d['rcr_w'] = _sel_win(reccr.reshape(n, K, -1), win)
+                    d['cost_d'] = _cost16384(_sel_win(ssd_c, win),
+                                             _sel_win(lvl_c, win), self.ncc,
+                                             self.lam)
+                    d['derived'] = m_win
+                    d['recy_w'] = recy_w
+                    d['qy_w'] = qy_w
+            else:
+                qcb_w, rcb_w, scb, lcb = _got(resA, d['cb'])
+                qcr_w, rcr_w, scr, lcr = _got(resA, d['cr'])
+                d['qcb_w'], d['rcb_w'] = qcb_w, rcb_w
+                d['qcr_w'], d['rcr_w'] = qcr_w, rcr_w
+                d['cost_d'] = _cost16384(scb + scr, lcb + lcr, self.ncc,
+                                         self.lam)
+            out[ck] = o
+
+        # ---- wave B: best-of-3 CCLM per chroma CU on the UPDATED luma,
+        # then one trellis chain per chroma size
+        Bj = {}
+        if self.cclm:
+            for ck in classes:
+                tree, log2 = ck
+                if tree == 'L':
+                    continue
+                x, _n_ph = live[ck]
+                d = pre[ck]
+                n, cs = d['n'], d['cs']
+                lgc = cs.bit_length() - 1
+                gc = self.geo[(tree, log2, 1)]
+                bf, bi = x['bf'], x['bi']
+                gx, gy = gc['xs'][bi], gc['ys'][bi]
+                mk = gc['masks'][bi]
+                if tree == 'S':
+                    own = d['recy_w']
+                else:
+                    dy8 = torch.arange(8, device=bi.device)
+                    bx8 = (bi % (W // 8)) * 8
+                    by8 = (bi // (W // 8)) * 8
+                    ridx = ((by8[:, None, None] + dy8[None, :, None]) * W
+                            + bx8[:, None, None] + dy8[None, None, :])
+                    own = ry[bf[:, None, None], ridx].reshape(n, -1)
+                TS, LS, LC = intra_pred.cclm_strips(ry, 2 * gx, 2 * gy, cs,
+                                                    H, W, bf)
+                ctb, clb = intra_pred.cclm_cstrips(rcb, gx, gy, cs, *HWc, bf)
+                ctr, clr = intra_pred.cclm_cstrips(rcr, gx, gy, cs, *HWc, bf)
+                CT2 = torch.cat([ctb, ctr])
+                CL2 = torch.cat([clb, clr])
+                modes6 = torch.arange(81, 84, dtype=torch.int32,
+                                      device=bi.device).repeat_interleave(
+                                          2 * n)
+                p6 = intra_pred.cclm_from_own(
+                    modes6, own.repeat(6, 1), LC.repeat(6, 1),
+                    TS.repeat(6, 1, 1), LS.repeat(6, 1, 1), CT2.repeat(3, 1),
+                    CL2.repeat(3, 1), mk.repeat(6, 1), (2 * gy).repeat(6),
+                    cs, 1 << self.log2_ctu)
+                p6 = p6.reshape(3, 2, n, cs * cs)
+                pcb3, pcr3 = p6[:, 0], p6[:, 1]               # (3, n, P)
+                sad = ((pcb3 - d['ocb'][None]).abs().sum(2)
+                       + (pcr3 - d['ocr'][None]).abs().sum(2))
+                pick = sad.argmin(0)                          # 81 wins ties
+                idx = pick[None, :, None].expand(1, n, cs * cs)
+                d['pick'] = pick
+                d['ccb'] = self._push(Bj, lgc, pcb3.gather(0, idx)[0],
+                                      d['ocb'], 1)
+                d['ccr'] = self._push(Bj, lgc, pcr3.gather(0, idx)[0],
+                                      d['ocr'], 1)
+        resB = self._tq_all(Bj)
+
+        # ---- phase 4: CCLM-vs-derived decision, chroma scatters and the
+        # in-scan refine resolution (phantom vs accumulated region cost)
+        for ck in classes:
+            tree, log2 = ck
+            if tree == 'L':
+                continue
+            x, n_ph = live[ck]
+            d = pre[ck]
+            n, cs = d['n'], d['cs']
+            bf, bi = x['bf'], x['bi']
+            valid = x['valid']
+            gc = self.geo[(tree, log2, 1)]
+            o = out[ck]
+            cmode = d['derived']
+            cost_ch = d['cost_d']
+            qcb_w, rcb_w = d['qcb_w'], d['rcb_w']
+            qcr_w, rcr_w = d['qcr_w'], d['rcr_w']
+            if self.cclm:
+                qcb_c, rcb_c, scb, lcb = _got(resB, d['ccb'])
+                qcr_c, rcr_c, scr, lcr = _got(resB, d['ccr'])
+                pick = d['pick']
+                cost_c = _cost16384(scb + scr, lcb + lcr, self.cclm_mb[pick],
+                                    self.lam)
+                use = cost_c < d['cost_d']                # derived wins ties
+                cmode = torch.where(use, 81 + pick, cmode)
+                cost_ch = torch.where(use, cost_c, cost_ch)
+                qcb_w = torch.where(use[:, None, None],
+                                    qcb_c.reshape(n, cs, cs), qcb_w)
+                qcr_w = torch.where(use[:, None, None],
+                                    qcr_c.reshape(n, cs, cs), qcr_w)
+                rcb_w = torch.where(use[:, None], rcb_c, rcb_w)
+                rcr_w = torch.where(use[:, None], rcr_c, rcr_w)
+            cost_cu = (d['cost_y_w'] + cost_ch if tree == 'S' else cost_ch)
+            keep = valid if n_ph else None
+            if self.has_ph and tree == 'S':
+                gl = self.geo[(tree, log2, 0)]
+                cells_r = gl['cells'][bi]                     # (n, n4c)
+                if n_ph:
+                    # merged-leaf vs accumulated-split comparison at the
+                    # phantom's own rank; ties keep the split
+                    region = _region_sum(cp[bf[:, None], cells_r])
+                    cost_leaf = cost_cu + hdrS
+                    use_ph = x['ph'] & (region > cost_leaf)
+                    keep = valid | use_ph
+                    o['use'] = use_ph
+                    prow = gl['scat'][bi]
+                    _put(ry, bf, prow, d['recy_w'], use_ph)
+                    _put(cy, bf, prow, d['qy_w'], use_ph)
+                    _put(mm, bf, cells_r,
+                         d['derived'][:, None].expand(cells_r.shape), use_ph)
+                else:
+                    o['use'] = torch.zeros_like(valid)
+                _add_at(cp, bf, cells_r[:, 0], cost_cu + hdrS,
+                        valid if n_ph else None)
+                if n_ph:
+                    # a winning phantom resets its region to its own leaf
+                    # cost (nested refines then see the min)
+                    first = torch.zeros_like(cells_r, dtype=torch.float32)
+                    first[:, 0] = 1.0
+                    _put(cp, bf, cells_r, cost_leaf[:, None] * first, use_ph)
+            elif self.has_ph and tree == 'C':
+                bx8 = (bi % (W // 8)) * 8
+                by8 = (bi // (W // 8)) * 8
+                _add_at(cp, bf, (by8 >> 2) * (W >> 2) + (bx8 >> 2),
+                        cost_ch + hdrC)
+            crows = gc['scat'][bi]
+            _put(rcb, bf, crows, rcb_w, keep)
+            _put(rcr, bf, crows, rcr_w, keep)
+            if self.has_ph:
+                _put(ccb, bf, crows, qcb_w.reshape(n, -1), keep)
+                _put(ccr, bf, crows, qcr_w.reshape(n, -1), keep)
+            else:
+                o['qcb'] = qcb_w.reshape(n, -1)
+                o['qcr'] = qcr_w.reshape(n, -1)
+            o['cmode'] = cmode.to(torch.int8)
+        return out
+
+    def _push(self, jobs, lg, pred, orig, c):
+        """Queue one trellis-RD job of block size 2^lg for component class
+        c (0 luma, 1 chroma); returns its (size, index) tag."""
+        n = pred.shape[0]
+        full = functools.partial(torch.full, (n,), dtype=torch.int32,
+                                 device=pred.device)
+        jobs.setdefault(lg, []).append(
+            (pred, orig, full(int(self.ls_tab[c, lg - 2])),
+             full(int(self.bd_tab[c, lg - 2]))))
+        return lg, len(jobs[lg]) - 1
+
+    def _tq_all(self, A):
+        """DCT -> trellis (K1, one launch per distinct size) -> dequant ->
+        inverse -> reconstruct -> SSD for every job of one wave. Returns
+        {lg: [(q, rec, ssd, level) per job]}."""
+        staged = []
+        tr_jobs = []
+        for lg in sorted(A):
+            jobs = A[lg]
+            s = 1 << lg
+            pred = torch.cat([j[0] for j in jobs])
+            orig = torch.cat([j[1] for j in jobs])
+            ls_r = torch.cat([j[2] for j in jobs])
+            bd_r = torch.cat([j[3] for j in jobs])
+            t = transforms.forward_impl((orig - pred).reshape(-1, s, s))
+            staged.append((lg, pred, orig, ls_r, bd_r, jobs))
+            tr_jobs.append((t, ls_r, bd_r, lg))
+        tr_out = ktr.trellis_rate_batch(tr_jobs, self.lam_dq, self.lv) \
+            if tr_jobs else []
+        res_map = {}
+        for (lg, pred, orig, ls_r, bd_r, jobs), (q, level) in zip(staged,
+                                                                  tr_out):
+            s = 1 << lg
+            r = transforms.inverse_impl(kq.dequantize(q, ls_r, bd_r))
+            rec = torch.clamp(pred.reshape(-1, s, s) + r, 0, 255).reshape(
+                pred.shape[0], -1)
+            e = rec - orig
+            ssd = (e * e).sum(1, dtype=torch.int32)
+            out, off = [], 0
+            for j in jobs:
+                n = j[0].shape[0]
+                out.append((q[off:off + n], rec[off:off + n],
+                            ssd[off:off + n], level[off:off + n]))
+                off += n
+            res_map[lg] = out
+        return res_map
+
+    def _post_segment(self, rows, out):
+        """Without phantoms the scan never reads the coefficient planes:
+        one scatter per class after the segment writes every winner."""
+        cy, ccb, ccr = self.carry[5:]
+        for ck, lst in out.items():
+            if not lst:
+                continue
+            tree, log2 = ck
+            bf, bi = rows[ck]['bf'], rows[ck]['bi']
+            if tree != 'C':
+                g = self.geo[(tree, log2, 0)]
+                _put(cy, bf, g['scat'][bi], torch.cat([o['qy'] for o in lst]))
+            if tree != 'L':
+                crows = self.geo[(tree, log2, 1)]['scat'][bi]
+                _put(ccb, bf, crows, torch.cat([o['qcb'] for o in lst]))
+                _put(ccr, bf, crows, torch.cat([o['qcr'] for o in lst]))
+
+    # ----------------------------------------------------------- the fetch
+    def finish(self):
+        """Fetch the small per-step outputs and the planes once; write the
+        winner modes, refine flags and coefficients into the CUs. Returns
+        ([(ry, rcb, rcr)] int32 planes, {id(alt_cu): leaf won})."""
+        W, H, F = self.W, self.H, self.F
+        fin = [t.cpu().numpy() for t in _carry_final(self.carry)]
+        use_map = {}
+        for seg, ys in zip(self.segments, self.ys):
+            _extract_costs_modes(seg, {
+                ck: {f: t.cpu().numpy() for f, t in o.items()}
+                for ck, o in ys.items()}, use_map)
+        ry, rcb, rcr, cyp, ccbp, ccrp = fin
+        ry = ry.astype(np.int32).reshape(F, H, W)
+        rcb = rcb.astype(np.int32).reshape(F, H // 2, W // 2)
+        rcr = rcr.astype(np.int32).reshape(F, H // 2, W // 2)
+        for seg in self.segments:
+            _extract_coeffs(self.cfg, seg, cyp, ccbp, ccrp, use_map)
+        return [(ry[f], rcb[f], rcr[f]) for f in range(F)], use_map
+
+
+def _got(res, tag):
+    lg, i = tag
+    return res[lg][i]
+
+
+def _upload(a, dev):
+    return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _dev_table(key, dev):
+    """The (67, 67, 67) mode-bit table on the device, once per key."""
+    return _upload(_mpm_bits16384(key), dev)
+
+
+def _extract_costs_modes(seg, ys, use_map):
+    """Winner modes and refine flags from a segment's small outputs, one
+    row per schedule row. (Per-CU costs stay on device — the in-scan
+    refine resolution is their only consumer.)"""
+    for ck, rows in seg.items():
+        tree = ck[0]
+        o = ys[ck]
+        # modes are written for phantoms too: a refine-flipped merged
+        # leaf becomes the final CU with the modes its phantom
+        # evaluation ranked best
+        if tree != 'C':
+            for (cu, ph), m in zip(rows.cus, o['mode'].tolist()):
+                cu.luma_mode = m
+        if tree != 'L':
+            for (cu, ph), m in zip(rows.cus, o['cmode'].tolist()):
+                cu.chroma_mode = m
+        if 'use' in o:
+            for (cu, ph), u in zip(rows.cus, o['use'].tolist()):
+                if ph:
+                    use_map[id(cu)] = bool(u)
+
+
+def _extract_coeffs(cfg, seg, cyp, ccbp, ccrp, use_map):
+    """Winner coefficients from the dense int16 planes (one fancy
+    gather per class, then cheap assignments). Losing phantoms carry no
+    plane data; winning phantoms are the region's final leaves and
+    extract like committed CUs."""
+    W, H = cfg.width, cfg.height
+    for ck, rows in seg.items():
+        tree, log2 = ck
+        s = 1 << log2
+        sel = [i for i, (cu, ph) in enumerate(rows.cus)
+               if (not ph) or use_map.get(id(cu), False)]
+        if not sel:
+            continue
+        live = [rows.cus[i][0] for i in sel]
+        bfv = rows.fields['bf'][sel].astype(np.int64)
+        biv = rows.fields['bi'][sel]
+        if tree != 'C':
+            gy_ = _geometry(W, H, s, 0, cfg.log2_ctu_size)
+            qy = cyp[bfv[:, None], gy_[5][biv]].reshape(-1, s, s)
+            for i, cu in enumerate(live):
+                cu.coeffs[0] = qy[i]
+        if tree != 'L':
+            cs = (s >> 1) if tree == 'S' else 4
+            gc_ = _geometry(W, H, cs, 1, cfg.log2_ctu_size)
+            qcb = ccbp[bfv[:, None], gc_[5][biv]].reshape(-1, cs, cs)
+            qcr = ccrp[bfv[:, None], gc_[5][biv]].reshape(-1, cs, cs)
+            for i, cu in enumerate(live):
+                cu.coeffs[1] = qcb[i]
+                cu.coeffs[2] = qcr[i]

@@ -12,11 +12,13 @@ synchronize, so chunk k+1's device work runs under chunk k's host passes.
 
 Stage A, chroma, and stage B — on the host, in the native C++ library:
 chroma candidate RD, the bottom-up QT decision, tree assembly, and the
-RD commit against the true reconstruction in a worker thread.
+RD commit against the true reconstruction in a worker thread. Under
+`commit_engine='device'` the commit runs on the device instead
+(search/device_commit.py), from planes uploaded once per chunk.
 
-Paths of the JAX module outside this slice (the device commit engine,
-the greedy and non-RD commits, the sharded mesh, per-QG QP deltas,
-host-side luma selection, device chroma stage A) raise
+Paths of the JAX module outside this slice (the greedy and non-RD
+commits, the sharded mesh, per-QG QP deltas, host-side luma selection,
+device chroma stage A, and so the device engine's default chroma) raise
 NotImplementedError.
 """
 import functools
@@ -31,12 +33,14 @@ from ..entropy.structure import CtNode, CuDecision
 from ..kernels import intra_pred, quantize as kq, refs, transforms
 from ..kernels import trellis as ktr
 from ..spec import quant
+from .device_commit import commit_frames_device_rd
 
 
-def _not_ported(what):
+def _not_ported(what, item=None):
+    where = f", item {item}" if item else ""
     raise NotImplementedError(
         f"{what} is not ported to wrenc_tpu_torch yet (ROADMAP.md, "
-        "'Modules still to port')")
+        f"'Modules still to port'{where})")
 
 
 def resolve_device(device):
@@ -51,29 +55,48 @@ def resolve_device(device):
 class WavefrontSearch:
     def __init__(self, cfg, trellis_commit=True, mesh=None, rd_commit=True,
                  commit_engine=None, chroma_stage_a=None, device=None):
-        """device: torch device for stage A; None = 'cuda' (raises when no
-        card is present). The other options are as in the JAX package;
-        only their defaults are ported (the native RD tree commit with the
-        trellis quantizer, a single device, native chroma)."""
+        """device: torch device for stage A and the device commit; None =
+        'cuda' (raises when no card is present). The other options are as
+        in the JAX package: commit_engine 'native' (the threaded C++ RD
+        tree commit, default; env WRENC_COMMIT_ENGINE) or 'device' (the
+        rank wavefront of search/device_commit.py, which needs
+        chroma_stage_a='native' or WRENC_CHROMA_STAGE_A=native). Only the
+        trellis RD commit on a single device is ported."""
         cfg.validate()
         if not (trellis_commit and rd_commit):
             _not_ported("the greedy / non-RD commit (trellis_commit=False, "
-                        "rd_commit=False)")
+                        "rd_commit=False)", 2)
         if mesh is not None:
-            _not_ported("the sharded stage A (mesh=)")
+            _not_ported("the sharded stage A (mesh=)", 5)
         commit_engine = commit_engine or os.environ.get(
             'WRENC_COMMIT_ENGINE', 'native')
-        if commit_engine != 'native':
-            _not_ported(f"commit_engine={commit_engine!r}")
+        if commit_engine not in ('native', 'device'):
+            raise ValueError(f"commit_engine={commit_engine!r}: want "
+                             "'native' or 'device'")
+        self._device_commit = commit_engine == 'device'
+        rm = cfg.rate_model
+        if self._device_commit and not (
+                cfg.dep_quant_enabled
+                and getattr(rm, 'commit_rank_full', 0)
+                and getattr(rm, 'commit_rank_trellis', 0)
+                and getattr(rm, 'commit_chroma_redecide', 0)):
+            raise ValueError(
+                "commit_engine='device' needs dep_quant_enabled and the "
+                "rate model's commit_rank_full, commit_rank_trellis and "
+                "commit_chroma_redecide (the JAX package runs the native "
+                "engine otherwise): pass commit_engine='native'")
         if tuple(getattr(cfg, 'qp_delta_pattern', ()) or ()):
-            _not_ported("qp_delta_pattern (per-QG QP)")
+            _not_ported("qp_delta_pattern (per-QG QP)", 2)
         if os.environ.get('WRENC_STAGE_A_SELECT', 'device') != 'device':
             _not_ported("host-side luma selection (WRENC_STAGE_A_SELECT)")
-        auto_chroma = ('device' if cfg.width * cfg.height >= 1 << 19
+        auto_chroma = ('device' if (self._device_commit or
+                                    cfg.width * cfg.height >= 1 << 19)
                        else 'native')
         if (chroma_stage_a or os.environ.get(
                 'WRENC_CHROMA_STAGE_A', auto_chroma)) == 'device':
-            _not_ported("device chroma stage A (default at >= 0.5 Mpx)")
+            _not_ported("device chroma stage A (the default at >= 0.5 Mpx "
+                        "and under commit_engine='device'; pass "
+                        "chroma_stage_a='native')", 1)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rm = cfg.rate_model
@@ -98,6 +121,7 @@ class WavefrontSearch:
         self._mode_bits = self._approx_mode_bits()
         self.mode_bits_scale = getattr(self.rm, 'stage_a_mode_bits_scale',
                                        2.0)
+        self._refine_margin = self.rm.split_refine_margin
         self._dev_args = None
 
     # ------------------------------------------------------------- stage A
@@ -123,10 +147,29 @@ class WavefrontSearch:
     # by a pixel budget so the per-chunk device working set stays bounded
     BATCH_BUCKETS = (1, 2, 4, 8)
     CHUNK_PIXEL_BUDGET = 3_500_000
+    # the device commit engine shares one scan among a chunk's frames, so
+    # it takes chunks as large as stage-A working memory allows
+    DEVICE_BATCH_BUCKETS = (1, 2, 4, 8, 16)
+    DEVICE_CHUNK_PIXEL_BUDGET = 9_000_000
+
+    def _commit_group_frames(self):
+        """Frames per device commit scan (env WRENC_COMMIT_GROUP
+        overrides), as in the JAX package: the rank count does not grow
+        with the frames, so a larger group spreads each step's fixed cost
+        over more of them; 64 up to 0.5 Mpx, else 4."""
+        env = int(os.environ.get('WRENC_COMMIT_GROUP', 0))
+        if env:
+            return env
+        px = self.cfg.width * self.cfg.height
+        return 64 if px <= 524_288 else 4
 
     def _buckets(self):
         px = self.cfg.width * self.cfg.height
-        bs = [b for b in self.BATCH_BUCKETS if b * px <= self.CHUNK_PIXEL_BUDGET]
+        buckets = (self.DEVICE_BATCH_BUCKETS if self._device_commit
+                   else self.BATCH_BUCKETS)
+        budget = (self.DEVICE_CHUNK_PIXEL_BUDGET if self._device_commit
+                  else self.CHUNK_PIXEL_BUDGET)
+        bs = [b for b in buckets if b * px <= budget]
         return bs or [1]
 
     def _bucket(self, n):
@@ -142,31 +185,42 @@ class WavefrontSearch:
         is dispatched BEFORE the host passes of chunk k run (dispatch does
         not synchronize), and the commit of chunk k runs in a worker
         thread (the native call releases the GIL) under chunk k+1's decide
-        phase. Returns [(trees, recon), ...]."""
+        phase. The device commit engine commits several chunks in one scan
+        (_commit_group_frames). Returns [(trees, recon), ...]."""
         from concurrent.futures import ThreadPoolExecutor
         self.phase_times = {}
         out = []
         max_b = self._buckets()[-1]
         chunks = [frames[i:i + max_b] for i in range(0, len(frames), max_b)]
+        group_n = 1
+        if self._device_commit and max_b < self._commit_group_frames():
+            group_n = max(1, self._commit_group_frames() // max_b)
         pending = self._dispatch_stage_a(chunks[0])
         with ThreadPoolExecutor(max_workers=1) as pool:
             prev = None
+            gb, gt, gd = [], [], []
             for k, chunk in enumerate(chunks):
                 nxt = (self._dispatch_stage_a(chunks[k + 1])
                        if k + 1 < len(chunks) else None)
-                batch, trees = self._decide_chunk(pending)
+                batch, trees, devp = self._decide_chunk(pending)
+                gb.extend(batch)
+                gt.extend(trees)
+                gd.append((devp, len(batch)))
                 pending = nxt
-                if prev is not None:
-                    out.extend(self._join_commit(prev))
-                timing = {}
-                fut = pool.submit(self._commit_timed, batch, trees, timing)
-                prev = (fut, trees, timing)
+                if len(chunks) == k + 1 or (k + 1) % group_n == 0:
+                    if prev is not None:
+                        out.extend(self._join_commit(prev))
+                    timing = {}
+                    fut = pool.submit(self._commit_timed, gb, gt, timing,
+                                      _merge_devp(gd))
+                    prev = (fut, gt, timing)
+                    gb, gt, gd = [], [], []
             out.extend(self._join_commit(prev))
         return out
 
-    def _commit_timed(self, batch, all_trees, timing):
+    def _commit_timed(self, batch, all_trees, timing, dev_planes=None):
         t0 = time.perf_counter()
-        recons = self._commit_all(all_trees, batch)
+        recons = self._commit_all(all_trees, batch, dev_planes)
         timing['work'] = time.perf_counter() - t0
         return recons
 
@@ -229,7 +283,9 @@ class WavefrontSearch:
 
     def _dispatch_stage_a(self, frames):
         """Dispatch the fused luma stage A for one chunk; does NOT block.
-        Returns (batch, sizes, device results, pinned upload buffer)."""
+        Returns (batch, sizes, device results, device planes): the planes
+        are (y, cb, cr) uint8 (F', H*W / H*W/4) for the device commit
+        engine, which shares the upload, and None for the native one."""
         cfg = self.cfg
         batch = [[np.asarray(p, dtype=np.int32) for p in planes]
                  for planes in frames]
@@ -239,22 +295,32 @@ class WavefrontSearch:
         sizes = self._sizes()
         args = self._stage_a_args()
         t0 = time.perf_counter()
-        # pixels cross to the device as uint8, from pinned memory without
-        # blocking; the buffer is returned so it outlives the copy
-        host = torch.from_numpy(
-            np.stack([b[0] for b in padded]).astype(np.uint8))
-        if self.device.type == 'cuda':
-            host = host.pin_memory()
-        planes = host.to(self.device, non_blocking=True)
+        planes = self._upload([b[0] for b in padded])
+        dev_planes = None
+        if self._device_commit:
+            dev_planes = (planes.reshape(len(padded), -1),
+                          self._upload([b[1] for b in padded]).reshape(
+                              len(padded), -1),
+                          self._upload([b[2] for b in padded]).reshape(
+                              len(padded), -1))
         res = fused_luma_stage_a(planes, cfg.width, cfg.height,
                                  cfg.log2_ctu_size, tuple(sizes), **args)
         self._phase('device_dispatch', time.perf_counter() - t0)
-        return batch, sizes, res, host
+        return batch, sizes, res, dev_planes
+
+    def _upload(self, planes):
+        """Planes to the device as uint8, from pinned memory without
+        blocking (the caching host allocator keeps the pinned block until
+        the copy has run)."""
+        host = torch.from_numpy(np.stack(planes).astype(np.uint8))
+        if self.device.type == 'cuda':
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
 
     def _decide_chunk(self, dispatched):
         """Wait for a dispatched stage A and run the decide phases;
-        returns (batch, all_trees) ready for _commit_all."""
-        self.batch, sizes, res, _ = dispatched
+        returns (batch, all_trees, device planes) ready for _commit_all."""
+        self.batch, sizes, res, dev_planes = dispatched
         F = len(self.batch)
         luma_mode_b = {}
         luma_cost_b = {}
@@ -289,13 +355,17 @@ class WavefrontSearch:
                 sizes, fi, luma_mode_b, chroma_cache)
             all_trees.append(trees)
         self._phase('host_decide', time.perf_counter() - t0)
-        return self.batch, all_trees
+        return self.batch, all_trees, dev_planes
 
-    def _commit_all(self, all_trees, batch):
-        """Commit every frame's decisions against true reconstruction in
-        the native C++ engine (coding-order walk, threaded across frames).
+    def _commit_all(self, all_trees, batch, dev_planes=None):
+        """Commit every frame's decisions against true reconstruction: in
+        the native C++ engine (coding-order walk, threaded across frames)
+        or, under commit_engine='device', in the device rank wavefront.
         Runs in a worker thread (see encode_frames): touches only
         `batch`/`all_trees`, never chunk-coupled instance state."""
+        if self._device_commit:
+            return commit_frames_device_rd(self.cfg, batch, all_trees,
+                                           dev_planes)
         ls_tab = np.zeros((2, 4), dtype=np.int32)
         bd_tab = np.zeros((2, 4), dtype=np.int32)
         for c in (0, 1):
@@ -330,7 +400,7 @@ class WavefrontSearch:
         cost = None
         split = {}
         refine = {}
-        margin = self.rm.split_refine_margin
+        margin = self._refine_margin
         self.cclm_choice = {}
         self.scipu_choice = None
         for s in sizes:
@@ -525,6 +595,18 @@ class WavefrontSearch:
         else:
             node.cu = self._make_leaf_cu(x, y, log2, tree, s)
         return node
+
+
+def _merge_devp(gd):
+    """Concatenate per-chunk device planes ((y, cb, cr) uint8, padded to
+    the stage-A bucket) into one commit group's; None for the native
+    engine."""
+    if any(d is None for d, n in gd):
+        return None
+    if len(gd) == 1:
+        d, n = gd[0]
+        return tuple(p[:n] for p in d)
+    return tuple(torch.cat([d[i][:n] for d, n in gd]) for i in range(3))
 
 
 # ------------------------------------------------------ luma stage A
