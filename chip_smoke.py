@@ -5,12 +5,18 @@
 
 Run from the root of a checkout. Phases, each fatal on failure:
   1. the card's name and power limit; build the native library (g++) and
-     the CUDA kernels K1/K2 (nvcc) from the checkout's sources, in
-     parallel;
+     the CUDA kernels K1/K2 (nvcc, with ptxas's register and spill
+     report) from the checkout's sources, in parallel;
   2. K1 (dq_trellis) and K2 (dq_greedy) against their plain PyTorch
-     versions on the card: adversarial blocks at log2 2..5 x QP 8/32/51,
-     then the main-path shapes of a CIF chunk, exact equality of levels
-     and f32 rate; kernel and plain times (CUDA events) beside the bound;
+     versions on the card: adversarial blocks at log2 2..5 x QP 8/32/51;
+     K1 also at B = 1, 3, 5 and 4,753 in both instantiations (8 lanes per
+     block, 1 lane at 4 x 4) and on a mixed-size wave with per-row ls /
+     bd_shift in one launch; then the main-path shapes of a CIF chunk;
+     exact equality of levels and f32 rate; kernel and plain times (CUDA
+     events; K1 also its device time in a CUDA graph) beside the bound,
+     and for K1 the SM clock read under load; then K1's two
+     instantiations at 4 x 4 over a sweep of batch sizes, the
+     measurement behind the launch rule's 1-lane threshold;
   3. the port's f32 FMA helper on the card against f64-computed FMAs;
   4. the main path: 16 synthetic CIF frames at QP 32 through
      wrenc_tpu_torch.encoder.Encoder + WavefrontSearch, default config and
@@ -23,16 +29,16 @@ Run from the root of a checkout. Phases, each fatal on failure:
   6. the device commit engine (commit_engine='device',
      chroma_stage_a='native'): 16 CIF frames at QP 32, warm-up then timed
      with the launch counters reset just before and read just after, K1
-     launched from trellis_rate_batch, decode == reconstruction, the
-     native engine's bytes and PSNR beside it; then the scan alone on
-     those frames, its first segment under
+     launched from trellis_rate_batch once per wave with trellis jobs,
+     decode == reconstruction, the native engine's bytes and PSNR beside
+     it; then the scan alone on those frames, its first segment under
      torch.cuda.set_sync_debug_mode("error") (no host-device sync inside
      the step loop), its steps and wall time; again under torch.profiler
      (the kernels' summed device time); again counting the PyTorch
-     operators it dispatches; again with CUDA events around
-     every K1 launch (summed device time, shapes); and K1 through
-     trellis_rate_batch against its plain twin at the scan's shapes,
-     with kernel-alone and plain times beside the bound.
+     operators it dispatches; again with CUDA events around every K1
+     launch (summed device time, shapes); and K1 through
+     trellis_rate_batch against its plain twin at the scan's shapes in
+     one launch, with kernel-alone and plain times beside the bound.
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
 a CUDA device or outside a checkout of the repo. Imports nothing of JAX.
@@ -61,6 +67,9 @@ OPS_S = 67e12 / 2
 # each), 16 edge relaxations (12 each), the 8-state normalisation and
 # backpointer packing (32), and the backtrack (20).
 OPS_PER_POS = {"dq_greedy": 48, "dq_trellis": 315}
+# K1's 4 x 4 batch sizes timed in both instantiations: the 64x64 test
+# geometry's chunk (12,288), 1, 2, 4 and 8 CIF frames (38,016 each)
+LANES_SWEEP_B = (1024, 4096, 12288, 16384, 38016, 76032, 152064, 304128)
 SIZES = (4, 8, 16, 32)
 N_CANDS = 6                      # K + 2 stage-A candidates per block
 CIF = (352, 288)
@@ -125,9 +134,18 @@ def phase_build():
         t_cuda, msg = fc.result()
     log(f"build: native g++ {t_native:.1f} s, CUDA dq_scan.cu nvcc "
         f"{t_cuda:.1f} s (in parallel)")
-    for line in msg.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  ptxas:", line.strip())
+    ptxas = [line.strip() for line in msg.splitlines()
+             if "registers" in line or "spill" in line
+             or "Compiling" in line]
+    for line in ptxas:
+        log("  ptxas:", line)
+    # K1's shared memory is dynamic: what the launcher requests per CTA
+    k1 = _build.lib("dq_scan")
+    smem = {f"lanes{lanes}_log2_{lg}": k1.dq_trellis_smem_bytes(lanes, lg)
+            for lanes, lgs in ((8, (2, 3, 4, 5)), (1, (2,))) for lg in lgs}
+    log(f"  K1 dynamic shared memory per CTA (bytes, the launcher's "
+        f"request by lanes and largest size): {json.dumps(smem)}")
+    return {"ptxas": ptxas}
 
 
 def _qcase(log2, qp, trellis):
@@ -188,6 +206,81 @@ def phase_kernel_checks():
     return errs
 
 
+def _k1_case(log2, qp, B, rng):
+    """K1's check blocks: the adversarial recipe tiled to B blocks, the
+    blocks past the recipe's 24 random in +-3000."""
+    import numpy as np
+    base = adversarial_blocks(log2, 13 * log2 + qp)
+    t = np.concatenate([base] * (-(-B // len(base))))[:B]
+    s = 1 << log2
+    t[len(base):] = rng.integers(-3000, 3000, (max(B - len(base), 0), s, s))
+    return t
+
+
+def _per_row(log2, B, rng):
+    """Per-row ls / bd_shift on the card for B blocks of mixed QPs."""
+    import numpy as np
+    import torch
+    qps = rng.choice([22, 27, 32, 37], B)
+    pars = [_qcase(log2, int(q), True)[0] for q in qps]
+    return tuple(torch.as_tensor(np.array([getattr(p, f) for p in pars],
+                                          np.int32), device="cuda")
+                 for f in ("ls", "bd_shift"))
+
+
+def phase_k1_checks():
+    """K1 against its plain twin, exactly: the adversarial blocks at log2
+    2..5 x QP 8/32/51 at B = 1, 3, 5 and 4,753, in both instantiations
+    (8 lanes per block, and 1 lane at 4 x 4, the only size the launch rule
+    gives it); then one launch of a mixed-size wave with per-row ls /
+    bd_shift."""
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.kernels import trellis as ktr
+    rng = np.random.default_rng(17)
+    worst, cases = 0.0, 0
+    for log2 in (2, 3, 4, 5):
+        for qp in (8, 32, 51):
+            qpar, lam, lv = _qcase(log2, qp, True)
+            for B in (1, 3, 5, 4753):
+                t = torch.as_tensor(_k1_case(log2, qp, B, rng), device="cuda")
+                want = ktr.trellis_rate_plain(t, qpar.ls, qpar.bd_shift, lam,
+                                              lv, log2)
+                for lanes in ((8, 1) if log2 == 2 else (8,)):
+                    (got,) = ktr._launch_k1([(t, qpar.ls, qpar.bd_shift,
+                                              log2)], lam, lv, lanes)
+                    torch.cuda.synchronize()
+                    e = _err(got, want)
+                    if e != 0:
+                        raise AssertionError(
+                            f"K1 ({lanes} lanes) != plain at log2 {log2} QP "
+                            f"{qp} B {B}: max abs err {e}")
+                    worst, cases = max(worst, e), cases + 1
+    # the table a search uploads ('cuda') is the one a launch reads
+    if ktr.order_table(torch.device("cuda")) is not ktr.order_table(t.device):
+        raise AssertionError("K1's coding-order table uploaded twice")
+    _, lam, lv = _qcase(2, 32, True)
+    jobs = []
+    for log2, B in ((3, 5), (2, 7), (5, 3), (4, 1), (3, 2), (2, 4753),
+                    (5, 70), (4, 33)):
+        t = torch.as_tensor(_k1_case(log2, 32, B, rng), device="cuda")
+        jobs.append((t, *_per_row(log2, B, rng), log2))
+    before = ktr.trellis_rate_batch.launches
+    got = ktr.trellis_rate_batch(jobs, lam, lv)
+    launched = ktr.trellis_rate_batch.launches - before
+    want = ktr.trellis_rate_batch_plain(jobs, lam, lv)
+    torch.cuda.synchronize()
+    e = max(_err(g, w) for g, w in zip(got, want))
+    if e != 0 or launched != 1:
+        raise AssertionError(f"mixed-size wave: max abs err {e}, "
+                             f"{launched} launches")
+    log(f"K1: equal to the plain version in {cases} cases (log2 2..5 x QP "
+        f"8/32/51 x B 1/3/5/4753, 8 lanes; 1 lane at log2 2) and on a "
+        f"mixed-size wave of {len(jobs)} jobs with per-row ls / bd_shift "
+        f"in one launch")
+    return max(worst, e)
+
+
 def _time_ms(fn, reps, per=1):
     """Median over `reps` CUDA-event timings of `per` back-to-back calls,
     divided by `per` (per > 1 hides the host's launch time under the
@@ -207,13 +300,44 @@ def _time_ms(fn, reps, per=1):
     return times[len(times) // 2]
 
 
+def _graph_ms(fn, n=20, reps=11):
+    """K1's device time per call of fn: n calls captured in a CUDA graph,
+    the graph replayed reps times between CUDA events; the median over
+    the replays, divided by n (no host launch time inside)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return _time_ms(graph.replay, reps) / n
+
+
+def _sm_clock_mhz(fn, n):
+    """The SM clock nvidia-smi reads while n calls of fn are queued."""
+    import torch
+    torch.cuda.synchronize()
+    for _ in range(n):
+        fn()
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    torch.cuda.synchronize()
+    return mhz
+
+
 def phase_kernel_timing(errs):
     """Each kernel at the main-path shapes of one CIF chunk (8 frames x 6
-    candidates per block), on DCT coefficients of residual noise."""
+    candidates per block), on DCT coefficients of residual noise. K1 also
+    by its device time in a CUDA graph, at 4 x 4 in both instantiations,
+    and the SM clock while it runs."""
     import numpy as np
     import torch
     from wrenc_tpu_torch.kernels import quantize as kq
     from wrenc_tpu_torch.kernels import transforms
+    from wrenc_tpu_torch.kernels import trellis as ktr
     W, H = CIF
     rows = {}
     rng = np.random.default_rng(3)
@@ -234,25 +358,42 @@ def phase_kernel_timing(errs):
             if e != 0:
                 raise AssertionError(f"{name} != plain at s={s}: {e}")
             errs[name] = max(errs[name], e)
-            # the kernel alone, on inputs already in its (P, B) layout and
-            # on the card, through the wrappers' own launch helper
-            tf = kq.to_coding_order(t, log2).T.contiguous()
+            # the kernel alone, with the tables and quant parameters on the
+            # card, through the wrappers' own launch helpers
             dev_args = (
                 torch.tensor([qpar.ls], dtype=torch.int32, device="cuda"),
                 torch.tensor([qpar.bd_shift], dtype=torch.int32,
                              device="cuda"),
                 kq.table(lam, torch.int32, "cuda"),
                 kq.table(lv, torch.float32, "cuda"))
+            extra = {}
+            if tr:
+                job = (t, dev_args[0], dev_args[1], log2)
 
-            def launch():
-                kq.launch_dq(name, tf, *dev_args)
+                def launch(lanes=None):
+                    ktr._launch_k1([job], *dev_args[2:], lanes)
+                extra["lanes"] = ktr.k1_lanes([job])
+                extra["device_ms"] = {
+                    lanes: _graph_ms(lambda: launch(lanes))
+                    for lanes in ((8, 1) if log2 == 2 else (8,))}
+                if s == 32:
+                    mhz = _sm_clock_mhz(launch, 2000)
+                    rows[name]["sm_clock_mhz"] = mhz
+            else:
+                tf = kq.to_coding_order(t, log2).T.contiguous()
+
+                def launch():
+                    kq.launch_dq(tf, *dev_args)
             launch()
             ms = _time_ms(launch, 21, per=10)
             wrap_ms = _time_ms(
                 lambda: kern(t, qpar.ls, qpar.bd_shift, lam, lv, log2), 11)
             plain_ms = _time_ms(
                 lambda: plain(t, qpar.ls, qpar.bd_shift, lam, lv, log2), 3)
-            nbytes = 4 * P * B * 2 + 4 * B + 8 * 1024
+            # each input read once, each output written once: K1 reads
+            # int32 coefficients and writes int16 levels; K2's kernel
+            # writes int32
+            nbytes = (6 if tr else 8) * P * B + 4 * B + 8 * 1024
             ops = OPS_PER_POS[name] * P * B
             bytes_ms = nbytes / HBM_BYTES_S * 1e3
             ops_ms = ops / OPS_S * 1e3
@@ -262,14 +403,52 @@ def phase_kernel_timing(errs):
             row["bound_ms"] += max(bytes_ms, ops_ms)
             row["bytes_ms"] += bytes_ms
             row["ops_ms"] += ops_ms
-            row["per_size"][s] = {"B": B, "P": P, "ms": ms,
-                                  "wrapper_ms": wrap_ms,
-                                  "plain_ms": plain_ms,
-                                  "bound_ms": max(bytes_ms, ops_ms)}
+            row["per_size"][s] = dict(
+                {"B": B, "P": P, "ms": ms, "wrapper_ms": wrap_ms,
+                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms)},
+                **extra)
             log(f"{name} s={s:2d} B={B:6d} P={P:4d}: kernel {ms:.4f} ms, "
                 f"wrapper {wrap_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-                f"{max(bytes_ms, ops_ms):.4f} ms")
+                f"{max(bytes_ms, ops_ms):.4f} ms"
+                + (f"; device ms by lanes {json.dumps(extra['device_ms'])}, "
+                   f"launch rule {extra['lanes']} lane(s)" if tr else ""))
+    log(f"dq_trellis: SM clock {rows['dq_trellis']['sm_clock_mhz']:.0f} "
+        f"MHz under load (nvidia-smi)")
     return rows
+
+
+def phase_k1_lanes_sweep():
+    """K1's two instantiations at 4 x 4, device time per launch in a CUDA
+    graph, at the batch sizes LANES_SWEEP_B (prefixes of one batch of DCT
+    coefficients of residual noise); the two agree exactly at the
+    largest. The launch rule's ONE_LANE_MIN_B is read off this sweep."""
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import transforms
+    from wrenc_tpu_torch.kernels import trellis as ktr
+    rng = np.random.default_rng(5)
+    res = rng.integers(-24, 25, (max(LANES_SWEEP_B), 4, 4)).astype(np.int32)
+    t_all = transforms.forward_impl(torch.as_tensor(res, device="cuda"))
+    qpar, lam, lv = _qcase(2, 32, True)
+    lam = kq.table(lam, torch.int32, "cuda")
+    lv = kq.table(lv, torch.float32, "cuda")
+    job = (t_all, qpar.ls, qpar.bd_shift, 2)
+    (a,) = ktr._launch_k1([job], lam, lv, 1)
+    (b,) = ktr._launch_k1([job], lam, lv, 8)
+    torch.cuda.synchronize()
+    if _err(a, b) != 0:
+        raise AssertionError("K1 at 4 x 4: 1 lane != 8 lanes")
+    out = {}
+    for B in LANES_SWEEP_B:
+        jb = (t_all[:B], qpar.ls, qpar.bd_shift, 2)
+        out[B] = {lanes: _graph_ms(lambda: ktr._launch_k1([jb], lam, lv,
+                                                          lanes))
+                  for lanes in (1, 8)}
+        log(f"K1 4x4 B={B:6d}: 1 lane {out[B][1]:.5f} ms, 8 lanes "
+            f"{out[B][8]:.5f} ms device; the rule takes "
+            f"{ktr.k1_lanes([jb])} lane(s)")
+    return out
 
 
 def phase_fma():
@@ -458,9 +637,9 @@ def _scan(search, frames, debug_first=False, on_k1=None, profile=False,
     t2 = time.perf_counter()
     steps = sum(len({r for rows in seg.values() for r in range(dc.SEG)
                      if rows.off[r + 1] > rows.off[r]}) for seg in segs)
-    launch = trellis.launch_dq
+    launch = trellis._launch_k1
     if on_k1 is not None:
-        trellis.launch_dq = lambda *a: on_k1(launch, *a)
+        trellis._launch_k1 = lambda *a: on_k1(launch, *a)
     ctx = (torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]) if profile
         else _OpCount() if count_ops else contextlib.nullcontext())
@@ -478,7 +657,7 @@ def _scan(search, frames, debug_first=False, on_k1=None, profile=False,
             torch.cuda.synchronize()
             dt = time.perf_counter() - t3
     finally:
-        trellis.launch_dq = launch
+        trellis._launch_k1 = launch
     out = {"seconds": dt, "schedule_seconds": t1 - t0,
            "setup_seconds": t2 - t1, "steps": steps, "segments": len(segs),
            "phantoms": has_ph}
@@ -501,6 +680,7 @@ def phase_device_commit(native_report):
     from wrenc_tpu_torch.decoder import decode_annexb
     from wrenc_tpu_torch.encoder import Encoder
     from wrenc_tpu_torch.search import WavefrontSearch
+    from wrenc_tpu_torch.search import device_commit as dc
     frames = synth_frames(16, *CIF, seed=1)
     cfg = _cfg(0)
     enc = Encoder(cfg, search=WavefrontSearch(cfg, **DEVICE_ENGINE))
@@ -508,17 +688,32 @@ def phase_device_commit(native_report):
     enc.encode(frames)                                     # warm-up
     warm = time.perf_counter() - t0
     counters = _counters()
+    # the waves that hold trellis jobs: K1 must launch once for each
+    tq_all = dc.RdScan._tq_all
+    waves = [0]
+
+    def counted(self, jobs):
+        waves[0] += bool(jobs)
+        return tq_all(self, jobs)
     for f in counters.values():
         f.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    stream, recons = enc.encode(frames)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dc.RdScan._tq_all = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream, recons = enc.encode(frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        dc.RdScan._tq_all = tq_all
     launches = {k: f.launches for k, f in counters.items()}
     if launches["dq_trellis_batch"] <= 0:
         raise AssertionError("device engine: K1 never launched from "
                              "trellis_rate_batch")
+    if launches["dq_trellis_batch"] != waves[0]:
+        raise AssertionError(
+            f"device engine: {launches['dq_trellis_batch']} K1 launches "
+            f"for {waves[0]} waves with trellis jobs")
     dec = decode_annexb(stream)
     if len(dec) != len(frames) or not all(
             (dec[k][c] == recons[k][c]).all()
@@ -530,7 +725,8 @@ def phase_device_commit(native_report):
     phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
     log(f"device engine: {len(frames)} CIF frames QP 32 in {dt:.3f} s = "
         f"{len(frames) / dt:.3f} fps (warm-up {warm:.1f} s), {len(stream)} "
-        f"bytes, PSNR-Y {psnr:.2f} dB, launches {launches}; native engine "
+        f"bytes, PSNR-Y {psnr:.2f} dB, launches {launches} (one K1 launch "
+        f"per wave: {waves[0]} waves); native engine "
         f"(report only): {native_report['bytes']} bytes, PSNR-Y "
         f"{native_report['psnr_y']:.2f} dB")
     log(f"  phase_times (s): {json.dumps(phases)}")
@@ -549,9 +745,9 @@ def phase_device_commit(native_report):
         f"'error'")
     shapes = []
 
-    def on_shape(launch, name, tf, *a):
-        shapes.append(tuple(tf.shape))
-        return launch(name, tf, *a)
+    def on_shape(launch, jobs, *a):
+        shapes.append(tuple((1 << (2 * j[3]), j[0].shape[0]) for j in jobs))
+        return launch(jobs, *a)
     prof, _ = _scan(search, frames, profile=True, on_k1=on_shape)
     k1_ms = prof["k1_device_ms"]
     if len(k1_ms) != len(shapes):
@@ -578,11 +774,11 @@ def phase_device_commit(native_report):
     # side of the launch (output allocation, parameters, the ctypes call)
     events = []
 
-    def on_k1(launch, name, tf, *a):
+    def on_k1(launch, jobs, *a):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = launch(name, tf, *a)
+        out = launch(jobs, *a)
         e1.record()
         events.append((e0, e1))
         return out
@@ -604,77 +800,89 @@ def phase_device_commit(native_report):
 
 
 def phase_batch_check(dev):
-    """K1 through trellis_rate_batch against its plain twin on the card
-    at the scan's shapes (one job per size, the median batch of that
-    size's launches, per-row ls / bd_shift as the scan passes them), and
-    K1 alone at those shapes beside the plain time and the bound."""
+    """K1 through trellis_rate_batch against its plain twin on the card at
+    the scan's shapes: one wave of one job per size at the median batch
+    of that size's jobs, with per-row ls / bd_shift as the scan passes
+    them, in one launch. Then that wave's and each size's K1 device time
+    alone beside the plain time and the bound; and the scan's launches
+    grouped by their wave's largest size."""
     import numpy as np
     import torch
     from wrenc_tpu_torch.kernels import quantize as kq
     from wrenc_tpu_torch.kernels import transforms
     from wrenc_tpu_torch.kernels import trellis as ktr
-    by_p = {}
-    for (P, B), ms, hd in zip(dev["k1_shapes"], dev["k1_ms"],
-                              dev["k1_hd_ms"]):
-        by_p.setdefault(P, []).append((B, ms, hd))
+    jobs_b = {}
+    by_top = {}
+    for wave, ms, hd in zip(dev["k1_shapes"], dev["k1_ms"], dev["k1_hd_ms"]):
+        for P, B in wave:
+            jobs_b.setdefault(P, []).append(B)
+        by_top.setdefault(max(P for P, _ in wave), []).append((ms, hd))
     rng = np.random.default_rng(7)
     _, lam, lv = _qcase(2, 32, True)
     lam_d = kq.table(lam, torch.int32, "cuda")
     lv_d = kq.table(lv, torch.float32, "cuda")
+
+    def bound(wave):
+        nbytes = sum(6 * P * B + 12 * B for P, B in wave) + 8 * 1024
+        ops = sum(OPS_PER_POS["dq_trellis"] * P * B for P, B in wave)
+        return nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
     jobs, per_size = [], {}
-    for P in sorted(by_p):
+    for P in sorted(jobs_b):
         log2 = (P.bit_length() - 1) // 2
         s = 1 << log2
-        bs = sorted(b for b, _, _ in by_p[P])
+        bs = sorted(jobs_b[P])
         B = bs[len(bs) // 2]
         res = rng.integers(-24, 25, (B, s, s)).astype(np.int32)
         t = transforms.forward_impl(torch.as_tensor(res, device="cuda"))
-        qps = rng.choice([32, 37], B)          # luma and chroma QP rows
-        ls, bd = (torch.as_tensor(np.array(
-            [getattr(_qcase(log2, int(q), True)[0], f) for q in qps],
-            np.int32), device="cuda") for f in ("ls", "bd_shift"))
-        jobs.append((t, ls, bd, log2))
-        tf = kq.to_coding_order(t, log2).T.contiguous()
-        ms = _time_ms(lambda: kq.launch_dq("dq_trellis", tf, ls, bd, lam_d,
-                                           lv_d), 21, per=10)
+        job = (t, *_per_row(log2, B, rng), log2)
+        jobs.append(job)
         plain_ms = _time_ms(lambda: ktr.trellis_rate_plain(
-            t, ls, bd, lam_d, lv_d, log2), 1)
-        per_size[s] = {"P": P, "launches": len(by_p[P]), "B_median": B,
-                       "B_max": bs[-1], "ms_alone": ms, "plain_ms": plain_ms,
-                       "ms_in_scan_mean": float(np.mean(
-                           [m for _, m, _ in by_p[P]])),
-                       "host_device_ms_in_scan_mean": float(np.mean(
-                           [h for _, _, h in by_p[P]]))}
+            t, job[1], job[2], lam_d, lv_d, log2), 1)
+        per_size[s] = {"P": P, "jobs": len(bs), "B_median": B,
+                       "B_max": bs[-1],
+                       "ms_alone": _graph_ms(
+                           lambda: ktr._launch_k1([job], lam_d, lv_d)),
+                       "plain_ms": plain_ms,
+                       "bound_ms": max(bound([(P, B)]))}
+    before = ktr.trellis_rate_batch.launches
     got = ktr.trellis_rate_batch(jobs, lam_d, lv_d)
+    launched = ktr.trellis_rate_batch.launches - before
     want = ktr.trellis_rate_batch_plain(jobs, lam_d, lv_d)
     torch.cuda.synchronize()
     err = max(_err(g, w) for g, w in zip(got, want))
-    if err != 0:
-        raise AssertionError(f"trellis_rate_batch != plain: {err}")
+    if err != 0 or launched != 1:
+        raise AssertionError(f"trellis_rate_batch != plain: {err}, "
+                             f"{launched} launches")
+    wave_ms = _graph_ms(lambda: ktr._launch_k1(jobs, lam_d, lv_d))
     log(f"trellis_rate_batch: K1 equal to the plain twin at the scan's "
-        f"shapes (sizes {sorted(per_size)})")
-
-    def bound(P, B):
-        nbytes = 4 * P * B * 2 + 12 * B + 8 * 1024
-        ops = OPS_PER_POS["dq_trellis"] * P * B
-        return nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
-    b = [bound(P, B) for P, B in dev["k1_shapes"]]
-    n = len(b)
+        f"shapes (sizes {sorted(per_size)}, one launch); that wave alone "
+        f"{wave_ms:.4f} ms device time")
     for s, row in per_size.items():
-        bb = bound(row["P"], row["B_median"])
-        row["bound_ms"] = max(bb)
-        log(f"  K1 s={s:2d} launches {row['launches']:5d}, B median "
-            f"{row['B_median']} max {row['B_max']}: in scan "
-            f"{row['ms_in_scan_mean']:.4f} ms device, "
-            f"{row['host_device_ms_in_scan_mean']:.4f} ms host+device, "
-            f"alone {row['ms_alone']:.4f} ms, plain {row['plain_ms']:.1f} "
-            f"ms, bound {max(bb):.5f} ms")
-    return {"err": err, "per_size": per_size,
+        log(f"  K1 s={s:2d}: {row['jobs']} jobs in the scan, B median "
+            f"{row['B_median']} max {row['B_max']}; alone "
+            f"{row['ms_alone']:.4f} ms device, plain {row['plain_ms']:.1f} "
+            f"ms, bound {row['bound_ms']:.5f} ms")
+    per_top = {}
+    for P, v in sorted(by_top.items()):
+        s = 1 << ((P.bit_length() - 1) // 2)
+        per_top[s] = {"launches": len(v),
+                      "ms_in_scan_mean": float(np.mean([m for m, _ in v])),
+                      "host_device_ms_in_scan_mean": float(np.mean(
+                          [h for _, h in v]))}
+        log(f"  waves whose largest size is s={s:2d}: {len(v)} launches, "
+            f"{per_top[s]['ms_in_scan_mean']:.4f} ms device and "
+            f"{per_top[s]['host_device_ms_in_scan_mean']:.4f} ms "
+            f"host+device in the scan (mean)")
+    b = [bound(w) for w in dev["k1_shapes"]]
+    n = len(b)
+    return {"err": err, "per_size": per_size, "per_wave_top": per_top,
+            "wave_alone_ms": wave_ms,
             "bytes_ms": sum(x for x, _ in b) / n,
             "ops_ms": sum(y for _, y in b) / n,
             "bound_ms": sum(max(x, y) for x, y in b) / n,
             "plain_ms": sum(per_size[1 << ((P.bit_length() - 1) // 2)]
-                            ["plain_ms"] for P, _ in dev["k1_shapes"]) / n}
+                            ["plain_ms"] for w in dev["k1_shapes"]
+                            for P, _ in w) / n}
 
 
 def main():
@@ -696,9 +904,11 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     import wrenc_tpu_torch  # noqa: F401  (TF32 off)
-    phase_build()
+    build = phase_build()
     errs = phase_kernel_checks()
+    errs["dq_trellis"] = max(errs["dq_trellis"], phase_k1_checks())
     rows = phase_kernel_timing(errs)
+    sweep = phase_k1_lanes_sweep()
     phase_fma()
     main_path = phase_main_path()
     phase_card_vs_cpu()
@@ -728,10 +938,14 @@ def main():
                          else "bytes"),
             "library_ms": None,
             "per_size": r["per_size"]})
-    # K1 on the device commit path: per launch, the mean over the scan's
-    # launches (device time traced by torch.profiler inside the scan;
-    # bound and plain time at each launch's size). host_device_ms: the
-    # same launches timed by CUDA events around the wrapper call.
+        if name == "dq_trellis":
+            kernels[-1].update(sm_clock_mhz=r["sm_clock_mhz"],
+                               ptxas=build["ptxas"],
+                               lanes_sweep_4x4_ms=sweep)
+    # K1 on the device commit path: per launch (one per wave), the mean
+    # over the scan's launches (device time traced by torch.profiler
+    # inside the scan; bound and plain time from each launch's jobs). host_device_ms: the same launches timed by CUDA
+    # events around the launch helper.
     scan = dev["scan"]
     kernels.append({
         "name": "dq_trellis", "entry": "trellis_rate_batch", "route": "cuda",
@@ -750,6 +964,8 @@ def main():
         "ms_sum_in_scan": scan["k1_device_ms_sum"],
         "host_device_ms": scan["k1_host_device_ms_sum"]
         / scan["k1_launches"],
+        "wave_alone_ms": batch["wave_alone_ms"],
+        "per_wave_top": batch["per_wave_top"],
         "per_size": batch["per_size"]})
     dev = {k: v for k, v in dev.items() if not k.startswith("k1_")}
     log(f"main path: {json.dumps(main_path)}")

@@ -50,6 +50,27 @@ def build(name, extra_flags=()):
         return so, proc.stdout + proc.stderr
 
 
+K1_MAX_JOBS = 8
+
+
+class K1Job(ctypes.Structure):
+    """ctypes mirror of csrc/dq_scan.cu's K1Job: one job of a K1 launch."""
+    _fields_ = [("t", ctypes.c_void_p), ("q", ctypes.c_void_p),
+                ("rate", ctypes.c_void_p), ("ls", ctypes.c_void_p),
+                ("bd", ctypes.c_void_p), ("B", ctypes.c_int),
+                ("log2_n", ctypes.c_int), ("ls_stride", ctypes.c_int),
+                ("bd_stride", ctypes.c_int), ("ls_val", ctypes.c_int),
+                ("bd_val", ctypes.c_int), ("cta_begin", ctypes.c_int),
+                ("t_transposed", ctypes.c_int)]
+
+
+class K1Desc(ctypes.Structure):
+    """ctypes mirror of K1Desc, passed to the kernel by value."""
+    _fields_ = [("job", K1Job * K1_MAX_JOBS), ("n_jobs", ctypes.c_int),
+                ("n_ctas", ctypes.c_int), ("max_log2_n", ctypes.c_int),
+                ("lanes", ctypes.c_int)]
+
+
 _SIGNATURES = {
     "dq_scan": {
         # tf, P, B, ls, bd, per_block, lam_dq, lv, q, rate, stream
@@ -58,13 +79,12 @@ _SIGNATURES = {
                              ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_void_p],
-        # ... lv, bp, rbuf, q, rate, stream
-        "dq_trellis_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_void_p],
+        # desc, lam_dq, lv, coding-order tables, stream
+        "dq_trellis_launch": [K1Desc, ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_void_p, ctypes.c_void_p],
+        "dq_trellis_desc_size": [],
+        # lanes, log2 of the largest block size
+        "dq_trellis_smem_bytes": [ctypes.c_int, ctypes.c_int],
     },
 }
 
@@ -79,6 +99,11 @@ def lib(name):
                 f = getattr(handle, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
+            if name == "dq_scan" and (handle.dq_trellis_desc_size()
+                                      != ctypes.sizeof(K1Desc)):
+                raise RuntimeError(
+                    f"K1Desc is {handle.dq_trellis_desc_size()} bytes in "
+                    f"{so}, {ctypes.sizeof(K1Desc)} in its ctypes mirror")
             _libs[name] = handle
         return _libs[name]
 

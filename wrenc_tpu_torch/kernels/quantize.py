@@ -123,7 +123,7 @@ def greedy_depquant(t, ls, bd_shift, lam_dq, log2_n, lv_table):
     if not t.is_cuda:
         raise ValueError(f"greedy_depquant: unsupported device {t.device}")
     tf = to_coding_order(t, log2_n).T.contiguous()        # (P, B)
-    q, rate = launch_dq("dq_greedy", tf, ls, bd_shift, lam_dq, lv_table)
+    q, rate = launch_dq(tf, ls, bd_shift, lam_dq, lv_table)
     greedy_depquant.launches += 1
     return from_coding_order(q.T, log2_n), rate
 
@@ -141,31 +141,26 @@ def kernel_params(ls, bd_shift, B, device):
     return (lsr.expand(B).contiguous(), bdr.expand(B).contiguous(), 1)
 
 
-def launch_dq(name, tf, ls, bd_shift, lam_dq, lv_table):
-    """One launch of K2 (name 'dq_greedy') or K1 ('dq_trellis') from
-    csrc/dq_scan.cu, the one place that calls their C interface. tf: (P, B)
-    contiguous int32 coefficients in coding order, position-major, on a
-    CUDA device; the other arguments as in greedy_depquant. Returns
-    (levels (P, B) int32, rate (B,) f32). Raises on a launch error. The
-    wrappers, not this helper, count main-path launches."""
+def launch_dq(tf, ls, bd_shift, lam_dq, lv_table):
+    """One launch of K2 (dq_greedy) from csrc/dq_scan.cu, the one place
+    that calls its C interface. tf: (P, B) contiguous int32 coefficients
+    in coding order, position-major, on a CUDA device; the other
+    arguments as in greedy_depquant. Returns (levels (P, B) int32, rate
+    (B,) f32). Raises on a launch error. The wrapper, not this helper,
+    counts main-path launches. (K1 is launched by kernels/trellis.py.)"""
     P, B = tf.shape
     dev = tf.device
     lsr, bdr, per_block = kernel_params(ls, bd_shift, B, dev)
     lam = table(lam_dq, torch.int32, dev)
     lv = table(lv_table, torch.float32, dev)
-    # K1 also takes its backpointer words and per-position rates, (P, B)
-    scratch = ((torch.empty((P, B), dtype=torch.int32, device=dev),
-                torch.empty((P, B), dtype=torch.float32, device=dev))
-               if name == "dq_trellis" else ())
     q = torch.empty((P, B), dtype=torch.int32, device=dev)
     rate = torch.empty((B,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = getattr(_build.lib("dq_scan"), name + "_launch")(
+        rc = _build.lib("dq_scan").dq_greedy_launch(
             tf.data_ptr(), P, B, lsr.data_ptr(), bdr.data_ptr(), per_block,
-            lam.data_ptr(), lv.data_ptr(), *(x.data_ptr() for x in scratch),
-            q.data_ptr(), rate.data_ptr(),
+            lam.data_ptr(), lv.data_ptr(), q.data_ptr(), rate.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, name)
+    _build.check(rc, "dq_greedy")
     return q, rate
 
 

@@ -7,16 +7,36 @@ trellis_rate_impl (the repo's only Pallas kernel, `_kernel` launched by
 rate of those levels summed in f32 in ascending coding order.
 `trellis_rate_batch` is the same kernel's batched entry (JAX
 `trellis_rate_batch`), used by the device commit engine. CUDA tensors
-launch the hand-written kernel K1 (`dq_trellis` in csrc/dq_scan.cu); CPU
-tensors take the plain twins `trellis_rate_plain` /
-`trellis_rate_batch_plain`.
+launch the hand-written kernel K1 (`dq_trellis` in csrc/dq_scan.cu),
+once per call whatever the mix of block sizes; CPU tensors take the plain
+twins `trellis_rate_plain` / `trellis_rate_batch_plain`.
+
+K1 reads the raster (B, n, n) int32 coefficients through the coding-order
+table and writes raster (B, n, n) int16 levels, so a launch needs no
+gather, transpose, scatter or scratch tensor: the wrapper allocates the
+outputs and packs a descriptor of its jobs (`pack_jobs`: pointers and
+shapes only, passed to the kernel by value).
 """
+import functools
+
+import numpy as np
 import torch
 
-from .quantize import (from_coding_order, launch_dq, param_rows, table,
+from . import _build
+from .quantize import (coding_order, from_coding_order, param_rows, table,
                        to_coding_order, trans_next)
 
 BIG = 1 << 29
+K1_MAX_JOBS = _build.K1_MAX_JOBS
+LOG2_SIZES = range(2, 6)
+# K1 runs 8 lanes per block of coefficients (4 blocks per one-warp CTA),
+# or 1 lane (32 blocks per CTA) for a launch of one job of 4 x 4 blocks
+# and at least ONE_LANE_MIN_B blocks: stage A's smallest size, where the
+# card is full either way and one lane per block issues fewer
+# instructions per position. From chip_smoke.py's sweep of both over B
+# at 4 x 4 on an H100 (PERF.md): 8 lanes are faster up to 12,288 blocks,
+# 1 lane from 16,384 on (2x at 304,128).
+ONE_LANE_MIN_B = 16384
 
 
 def trellis_rate(t, ls, bd_shift, lam_dq, lv_table, log2_n):
@@ -27,7 +47,7 @@ def trellis_rate(t, ls, bd_shift, lam_dq, lv_table, log2_n):
         return trellis_rate_plain(t, ls, bd_shift, lam_dq, lv_table, log2_n)
     if not t.is_cuda:
         raise ValueError(f"trellis_rate: unsupported device {t.device}")
-    out = _launch_k1(t, ls, bd_shift, lam_dq, lv_table, log2_n)
+    (out,) = _launch_k1([(t, ls, bd_shift, log2_n)], lam_dq, lv_table)
     trellis_rate.launches += 1
     return out
 
@@ -35,55 +55,183 @@ def trellis_rate(t, ls, bd_shift, lam_dq, lv_table, log2_n):
 trellis_rate.launches = 0
 
 
-def _launch_k1(t, ls, bd_shift, lam_dq, lv_table, log2_n):
-    tf = to_coding_order(t, log2_n).T.contiguous()        # (P, B)
-    q, rate = launch_dq("dq_trellis", tf, ls, bd_shift, lam_dq, lv_table)
-    return from_coding_order(q.T, log2_n), rate
-
-
 def trellis_rate_batch(jobs, lam_dq, lv_table):
     """Several block sizes in one wave. jobs: list of (t (B, n, n) int32,
-    ls, bd_shift, log2_n) with ls / bd_shift scalars or (B,) per block.
-    Returns [(q (B, n, n) int16, rate (B,) f32)] in job order, values
-    identical to trellis_rate per job.
+    ls, bd_shift, log2_n) with ls / bd_shift scalars or (B,) per block;
+    at most K1_MAX_JOBS jobs. Returns [(q (B, n, n) int16, rate (B,) f32)]
+    in job order, values identical to trellis_rate per job.
 
-    On CUDA tensors K1 is launched once per distinct size, with per-block
-    ls / bd_shift. The JAX entry shares one edge-ingredient precompute
-    across sizes (`build_rate_tabs`: index-shifted tables for a one-hot
-    MXU rate lookup, because gathers are slow on a TPU); K1 needs no
-    counterpart of it, since each thread computes its four candidates
-    from the 1024-entry tables staged in shared memory. CPU tensors take
-    trellis_rate_batch_plain."""
+    On CUDA tensors K1 is launched once for all jobs; per-row ls /
+    bd_shift tensors are read in place. The JAX entry shares one
+    edge-ingredient precompute across sizes (`build_rate_tabs`:
+    index-shifted tables for a one-hot MXU rate lookup, because gathers
+    are slow on a TPU); K1 needs no counterpart of it, since its lanes
+    compute the candidates on the chip from the 1024-entry tables. CPU
+    tensors take trellis_rate_batch_plain."""
     if all(j[0].device.type == 'cpu' for j in jobs):
         return trellis_rate_batch_plain(jobs, lam_dq, lv_table)
     if not all(j[0].is_cuda for j in jobs):
         raise ValueError("trellis_rate_batch: unsupported device "
                          f"{sorted({str(j[0].device) for j in jobs})}")
-    out = [None] * len(jobs)
-    for lg in sorted({j[3] for j in jobs}):
-        idx = [i for i, j in enumerate(jobs) if j[3] == lg]
-        ts = [jobs[i][0] for i in idx]
-        dev = ts[0].device
-        ls = torch.cat([_rows(jobs[i][1], t.shape[0], dev)
-                        for i, t in zip(idx, ts)])
-        bd = torch.cat([_rows(jobs[i][2], t.shape[0], dev)
-                        for i, t in zip(idx, ts)])
-        q, rate = _launch_k1(torch.cat(ts), ls, bd, lam_dq, lv_table, lg)
-        trellis_rate_batch.launches += 1
-        off = 0
-        for i, t in zip(idx, ts):
-            n = t.shape[0]
-            out[i] = (q[off:off + n], rate[off:off + n])
-            off += n
+    out = _launch_k1(jobs, lam_dq, lv_table)
+    trellis_rate_batch.launches += 1
     return out
 
 
 trellis_rate_batch.launches = 0
 
 
-def _rows(v, B, device):
-    """A scalar or (B,) quant parameter as a (B,) int32 tensor."""
-    return param_rows(v, B, device).expand(B)
+def order_table(device):
+    """The coding orders of log2 sizes 2..5 concatenated (1,360 int16 raster
+    indices; size log2_n's starts at (4^log2_n - 16) / 3), on `device`;
+    uploaded once per device ('cuda' and 'cuda:<current>' are one)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _order_table(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _order_table(device):
+    return torch.as_tensor(np.concatenate(
+        [coding_order(lg) for lg in LOG2_SIZES]).astype(np.int16),
+        device=device)
+
+
+def _param(v, B, device):
+    """A quant parameter as K1 takes it: a Python int (passed by value) or
+    an int32 tensor of 1 or B values on the device (read in place)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int32).reshape(-1).contiguous()
+    a = np.asarray(v)
+    if a.ndim == 0:
+        return int(a)
+    return param_rows(a, B, device)
+
+
+def _launch_k1(jobs, lam_dq, lv_table, lanes=None):
+    """One K1 launch for `jobs` (all on one CUDA device). Allocates the
+    outputs, packs the descriptor (lanes: see pack_jobs), launches on the
+    current stream and raises on a launch error. The wrappers count
+    main-path launches."""
+    dev = jobs[0][0].device
+    if any(j[0].device != dev for j in jobs):
+        raise ValueError("trellis: jobs on several devices")
+    lam = table(lam_dq, torch.int32, dev)
+    lv = table(lv_table, torch.float32, dev)
+    packed, outs = [], []
+    for t, ls, bd, lg in jobs:
+        t = t.to(torch.int32)
+        if _t_layout(t) is None:
+            t = t.contiguous()
+        B = t.shape[0]
+        packed.append((t, _param(ls, B, dev), _param(bd, B, dev), lg))
+        outs.append((torch.empty(t.shape, dtype=torch.int16, device=dev),
+                     torch.empty((B,), dtype=torch.float32, device=dev)))
+    desc = pack_jobs(packed, outs, lanes)
+    with torch.cuda.device(dev):
+        rc = _build.lib("dq_scan").dq_trellis_launch(
+            desc, lam.data_ptr(), lv.data_ptr(), order_table(dev).data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "dq_trellis")
+    return outs
+
+
+def _t_layout(t):
+    """0 for packed row-major (B, n, n) blocks, 1 for packed column-major
+    ones (the DCT's output: strides (n*n, 1, n)), None otherwise."""
+    n = t.shape[-1]
+    sb, sy, sx = t.stride()
+    if t.shape[0] > 1 and sb != n * n:
+        return None
+    return {(n, 1): 0, (1, n): 1}.get((sy, sx))
+
+
+def k1_lanes(jobs):
+    """K1's lanes per block for a launch of `jobs` [(t, ls, bd, log2_n)]:
+    1 for a single job of 4 x 4 blocks with at least ONE_LANE_MIN_B
+    blocks, else 8. The rule of the launch."""
+    if len(jobs) == 1:
+        t, _, _, lg = jobs[0]
+        if lg == 2 and t.shape[0] >= ONE_LANE_MIN_B:
+            return 1
+    return 8
+
+
+def pack_jobs(jobs, outs, lanes=None):
+    """The K1 launch descriptor for jobs [(t, ls, bd_shift, log2_n)] and
+    their outputs [(q, rate)], from shapes and data pointers only (no
+    tensor value is read, so packing never synchronizes with the device).
+
+    t: (B, n, n) int32, n = 2^log2_n with log2_n in 2..5, contiguous or
+    each block column-major (K1 reads either in place); ls /
+    bd_shift: a Python int (passed by value) or a contiguous int32 tensor
+    of 1 or B values; q: (B, n, n) int16 and rate: (B,) f32, contiguous.
+    lanes: K1's lanes per block, 8 or 1 (4 x 4 blocks only); None takes
+    k1_lanes(jobs). Jobs are ordered by block size,
+    largest first (stable), so the CTAs of the longest chains are issued
+    first; each job takes ceil(B / (32 / lanes)) one-warp CTAs. Jobs with
+    B = 0 take none and are left out. Raises ValueError on anything else,
+    and on more than K1_MAX_JOBS jobs."""
+    if len(jobs) != len(outs):
+        raise ValueError("pack_jobs: one (q, rate) per job")
+    if len(jobs) > K1_MAX_JOBS:
+        raise ValueError(f"pack_jobs: {len(jobs)} jobs, the K1 descriptor "
+                         f"holds {K1_MAX_JOBS}")
+    desc = _build.K1Desc()
+    desc.lanes = k1_lanes(jobs) if lanes is None else lanes
+    if desc.lanes not in (1, 8) or (desc.lanes == 1 and any(
+            j[3] != 2 for j in jobs)):
+        raise ValueError(f"pack_jobs: {desc.lanes} lanes per block for "
+                         f"sizes {sorted({j[3] for j in jobs})}")
+    per_cta = 32 // desc.lanes
+    order = sorted(range(len(jobs)), key=lambda i: -jobs[i][3])
+    n, cta = 0, 0
+    for i in order:
+        t, ls, bd, lg = jobs[i]
+        q, rate = outs[i]
+        if lg not in LOG2_SIZES:
+            raise ValueError(f"pack_jobs: log2 size {lg} not in 2..5")
+        N = 1 << lg
+        if t.dim() != 3 or tuple(t.shape[1:]) != (N, N):
+            raise ValueError(f"pack_jobs: blocks of shape {tuple(t.shape)}, "
+                             f"want (B, {N}, {N})")
+        B = t.shape[0]
+        layout = _t_layout(t)
+        if t.dtype != torch.int32 or layout is None:
+            raise ValueError("pack_jobs: t must be int32, each block dense "
+                             "row- or column-major and the blocks packed")
+        if (q.dtype != torch.int16 or q.shape != t.shape
+                or not q.is_contiguous() or rate.dtype != torch.float32
+                or tuple(rate.shape) != (B,) or not rate.is_contiguous()):
+            raise ValueError("pack_jobs: outputs must be (B, n, n) int16 "
+                             "and (B,) f32, contiguous")
+        if B == 0:
+            continue
+        j = desc.job[n]
+        j.t, j.q, j.rate = t.data_ptr(), q.data_ptr(), rate.data_ptr()
+        j.B, j.log2_n, j.cta_begin, j.t_transposed = B, lg, cta, layout
+        for name, v in (("ls", ls), ("bd", bd)):
+            if isinstance(v, torch.Tensor):
+                if (v.dtype != torch.int32 or v.dim() != 1
+                        or not v.is_contiguous() or v.numel() not in (1, B)
+                        or v.device != t.device):
+                    raise ValueError(
+                        f"pack_jobs: {name} must be a contiguous int32 "
+                        f"tensor of 1 or {B} values on {t.device}, got "
+                        f"{v.dtype} {tuple(v.shape)} on {v.device}")
+                setattr(j, name, v.data_ptr())
+                setattr(j, name + "_stride", int(v.numel() > 1))
+            elif isinstance(v, int):
+                setattr(j, name + "_val", v)
+            else:
+                raise ValueError(f"pack_jobs: {name} must be an int or a "
+                                 f"tensor, got {type(v).__name__}")
+        cta += -(-B // per_cta)
+        desc.max_log2_n = max(desc.max_log2_n, lg)
+        n += 1
+    desc.n_jobs, desc.n_ctas = n, cta
+    return desc
 
 
 def trellis_rate_batch_plain(jobs, lam_dq, lv_table):

@@ -467,6 +467,7 @@ class RdScan:
         self.cclm_mb = _upload(cclm_mb, dev)
         self.lam_dq = _upload(kq.lam_dq_table(rm, qp, trellis=True), dev)
         self.lv = _upload(kq.lv_table_device(rm, dep, True), dev)
+        ktr.order_table(dev)           # K1's coding orders, uploaded once
 
     # ------------------------------------------------------------ the scan
     def run_segment(self, si):
@@ -778,7 +779,7 @@ class RdScan:
         return lg, len(jobs[lg]) - 1
 
     def _tq_all(self, A):
-        """DCT -> trellis (K1, one launch per distinct size) -> dequant ->
+        """DCT -> trellis (K1, one launch for the wave) -> dequant ->
         inverse -> reconstruct -> SSD for every job of one wave. Returns
         {lg: [(q, rec, ssd, level) per job]}."""
         staged = []
