@@ -11,12 +11,16 @@ Run from the root of a checkout. Phases, each fatal on failure:
      versions on the card: adversarial blocks at log2 2..5 x QP 8/32/51;
      K1 also at B = 1, 3, 5 and 4,753 in both instantiations (8 lanes per
      block, 1 lane at 4 x 4) and on a mixed-size wave with per-row ls /
-     bd_shift in one launch; then the main-path shapes of a CIF chunk;
-     exact equality of levels and f32 rate; kernel and plain times (CUDA
-     events; K1 also its device time in a CUDA graph) beside the bound,
-     and for K1 the SM clock read under load; then K1's two
-     instantiations at 4 x 4 over a sweep of batch sizes, the
-     measurement behind the launch rule's 1-lane threshold;
+     bd_shift in one launch; K2 also at B = 1, 3, 5 and 4,753 in both
+     instantiations (1 and 8 lanes per block), row- and column-major t,
+     scalar and per-row ls / bd_shift, and the operators one CUDA
+     greedy_depquant call dispatches (its two output allocations only);
+     then the main-path shapes of a CIF chunk (K2 also the 16-frame
+     chunk); exact equality of levels and f32 rate; kernel, wrapper and
+     plain times (CUDA events) and device time per instantiation in a
+     CUDA graph beside the bound, and the SM clock read under load; then
+     each kernel's instantiations over a sweep of batch sizes, the
+     measurement behind its launch rule;
   3. the port's f32 FMA helper on the card against f64-computed FMAs;
   4. the main path: 16 synthetic CIF frames at QP 32 through
      wrenc_tpu_torch.encoder.Encoder + WavefrontSearch, default config and
@@ -62,10 +66,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 OPS_S = 67e12 / 2
 # 32-bit integer operations the algorithms need per coefficient position,
-# counted from csrc/dq_scan.cu: K2 = two candidate costs (13 each) plus
-# the level pick, rate and state update; K1 = four edge ingredients (16
-# each), 16 edge relaxations (12 each), the 8-state normalisation and
-# backpointer packing (32), and the backtrack (20).
+# counted from csrc/dq_scan.cu: K2 = the sequential scan's step, two
+# candidate costs (13 each) plus the level pick, rate and state update
+# (the kernel evaluates the costs of both deltas, twice that, to take
+# them off the chain; the bound counts what the function needs); K1 =
+# four edge ingredients (16 each), 16 edge relaxations (12 each), the
+# 8-state normalisation and backpointer packing (32), and the backtrack
+# (20).
 OPS_PER_POS = {"dq_greedy": 48, "dq_trellis": 315}
 # K1's 4 x 4 batch sizes timed in both instantiations: the 64x64 test
 # geometry's chunk (12,288), 1, 2, 4 and 8 CIF frames (38,016 each)
@@ -145,7 +152,12 @@ def phase_build():
             for lanes, lgs in ((8, (2, 3, 4, 5)), (1, (2,))) for lg in lgs}
     log(f"  K1 dynamic shared memory per CTA (bytes, the launcher's "
         f"request by lanes and largest size): {json.dumps(smem)}")
-    return {"ptxas": ptxas}
+    k2 = {f"lanes{lanes}_log2_{lg}": [k1.dq_greedy_blocks_per_cta(lanes, lg),
+                                      k1.dq_greedy_smem_bytes(lanes, lg)]
+          for lanes in (1, 8) for lg in (2, 3, 4, 5)}
+    log(f"  K2 blocks per 128-thread CTA and dynamic shared memory per CTA "
+        f"(bytes), by lanes and size: {json.dumps(k2)}")
+    return {"ptxas": ptxas, "k2_blocks_smem": k2}
 
 
 def _qcase(log2, qp, trellis):
@@ -281,6 +293,67 @@ def phase_k1_checks():
     return max(worst, e)
 
 
+def phase_k2_checks():
+    """K2 against its plain twin, exactly: the adversarial blocks at log2
+    2..5 x QP 8/32/51 at B = 1, 3, 5 and 4,753, in both instantiations
+    (1 and 8 lanes per block) with row- and column-major t, and with
+    per-row ls / bd_shift; then the operators one CUDA greedy_depquant
+    call dispatches with stage A's device-resident arguments: its two
+    output allocations and nothing else."""
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.kernels import quantize as kq
+    rng = np.random.default_rng(19)
+    worst, cases = 0.0, 0
+    for log2 in (2, 3, 4, 5):
+        for qp in (8, 32, 51):
+            qpar, lam, lv = _qcase(log2, qp, False)
+            for B in (1, 3, 5, 4753):
+                t = torch.as_tensor(_k1_case(log2, qp, B, rng), device="cuda")
+                params = [(qpar.ls, qpar.bd_shift)]
+                if B > 1:
+                    params.append(_per_row(log2, B, rng))
+                for ls, bd in params:
+                    want = kq.greedy_depquant_plain(t, ls, bd, lam, log2, lv)
+                    # the same values column-major in each block
+                    tc = t.transpose(1, 2).contiguous().transpose(1, 2)
+                    for lanes in (1, 8):
+                        for tt in (t, tc):
+                            got = kq._launch_k2(tt, ls, bd, lam, lv, log2,
+                                                lanes)
+                            torch.cuda.synchronize()
+                            e = _err(got, want)
+                            if e != 0:
+                                raise AssertionError(
+                                    f"K2 ({lanes} lanes, t strides "
+                                    f"{tt.stride()}) != plain at log2 {log2}"
+                                    f" QP {qp} B {B}: max abs err {e}")
+                            worst, cases = max(worst, e), cases + 1
+    # one call as stage A makes it: the DCT's column-major coefficients,
+    # tables and quant parameters already on the card
+    from wrenc_tpu_torch.kernels import transforms
+    qpar, lam, lv = _qcase(3, 32, False)
+    res = rng.integers(-24, 25, (4753, 8, 8)).astype(np.int32)
+    t = transforms.forward_impl(torch.as_tensor(res, device="cuda"))
+    args = (torch.tensor([qpar.ls], dtype=torch.int32, device="cuda"),
+            torch.tensor([qpar.bd_shift], dtype=torch.int32, device="cuda"),
+            torch.as_tensor(lam, device="cuda"), 3,
+            torch.as_tensor(lv, device="cuda"))
+    kq.greedy_depquant(t, *args)                  # loads the library
+    torch.cuda.synchronize()
+    with _OpCount() as oc:
+        kq.greedy_depquant(t, *args)
+    ops = dict(oc.counts)
+    if ops != {"empty": 2}:
+        raise AssertionError(f"greedy_depquant dispatched {ops}, want only "
+                             f"its two output allocations")
+    log(f"K2: equal to the plain version in {cases} cases (log2 2..5 x QP "
+        f"8/32/51 x B 1/3/5/4753, 1 and 8 lanes, row- and column-major t, "
+        f"scalar and per-row ls / bd_shift); one CUDA call dispatches "
+        f"{ops}")
+    return worst, ops
+
+
 def _time_ms(fn, reps, per=1):
     """Median over `reps` CUDA-event timings of `per` back-to-back calls,
     divided by `per` (per > 1 hides the host's launch time under the
@@ -330,9 +403,11 @@ def _sm_clock_mhz(fn, n):
 
 def phase_kernel_timing(errs):
     """Each kernel at the main-path shapes of one CIF chunk (8 frames x 6
-    candidates per block), on DCT coefficients of residual noise. K1 also
-    by its device time in a CUDA graph, at 4 x 4 in both instantiations,
-    and the SM clock while it runs."""
+    candidates per block), on DCT coefficients of residual noise: kernel
+    alone (CUDA events over 10 back-to-back launches), device time in a
+    CUDA graph per instantiation, the wrapper and the plain version,
+    beside the bound; K2 also at the device engine's 16-frame chunk.
+    The SM clock while each kernel runs at 32 x 32."""
     import numpy as np
     import torch
     from wrenc_tpu_torch.kernels import quantize as kq
@@ -344,76 +419,93 @@ def phase_kernel_timing(errs):
     for name, (kern, plain, tr) in _kernels().items():
         rows[name] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "bytes_ms": 0.0, "ops_ms": 0.0, "per_size": {}}
-        for s in SIZES:
-            log2 = s.bit_length() - 1
-            B = 8 * (W // s) * (H // s) * N_CANDS
-            P = s * s
-            res = rng.integers(-24, 25, (B, s, s)).astype(np.int32)
-            t = transforms.forward_impl(torch.as_tensor(res, device="cuda"))
-            qpar, lam, lv = _qcase(log2, 32, tr)
-            got = kern(t, qpar.ls, qpar.bd_shift, lam, lv, log2)
-            want = plain(t, qpar.ls, qpar.bd_shift, lam, lv, log2)
-            torch.cuda.synchronize()
-            e = _err(got, want)
-            if e != 0:
-                raise AssertionError(f"{name} != plain at s={s}: {e}")
-            errs[name] = max(errs[name], e)
-            # the kernel alone, with the tables and quant parameters on the
-            # card, through the wrappers' own launch helpers
-            dev_args = (
-                torch.tensor([qpar.ls], dtype=torch.int32, device="cuda"),
-                torch.tensor([qpar.bd_shift], dtype=torch.int32,
-                             device="cuda"),
-                kq.table(lam, torch.int32, "cuda"),
-                kq.table(lv, torch.float32, "cuda"))
-            extra = {}
-            if tr:
-                job = (t, dev_args[0], dev_args[1], log2)
+        if not tr:
+            rows[name]["per_size_16_frames"] = {}
+        for frames in ((8,) if tr else (8, 16)):
+            for s in SIZES:
+                log2 = s.bit_length() - 1
+                B = frames * (W // s) * (H // s) * N_CANDS
+                P = s * s
+                res = rng.integers(-24, 25, (B, s, s)).astype(np.int32)
+                t = transforms.forward_impl(torch.as_tensor(res,
+                                                            device="cuda"))
+                qpar, lam, lv = _qcase(log2, 32, tr)
+                got = kern(t, qpar.ls, qpar.bd_shift, lam, lv, log2)
+                want = plain(t, qpar.ls, qpar.bd_shift, lam, lv, log2)
+                torch.cuda.synchronize()
+                e = _err(got, want)
+                if e != 0:
+                    raise AssertionError(f"{name} != plain at s={s}, "
+                                         f"{frames} frames: {e}")
+                errs[name] = max(errs[name], e)
+                # the kernel alone, with the tables and quant parameters
+                # on the card, through the wrappers' own launch helpers
+                dev_args = (
+                    torch.tensor([qpar.ls], dtype=torch.int32,
+                                 device="cuda"),
+                    torch.tensor([qpar.bd_shift], dtype=torch.int32,
+                                 device="cuda"),
+                    kq.table(lam, torch.int32, "cuda"),
+                    kq.table(lv, torch.float32, "cuda"))
+                if tr:
+                    job = (t, dev_args[0], dev_args[1], log2)
 
-                def launch(lanes=None):
-                    ktr._launch_k1([job], *dev_args[2:], lanes)
-                extra["lanes"] = ktr.k1_lanes([job])
-                extra["device_ms"] = {
-                    lanes: _graph_ms(lambda: launch(lanes))
-                    for lanes in ((8, 1) if log2 == 2 else (8,))}
-                if s == 32:
-                    mhz = _sm_clock_mhz(launch, 2000)
-                    rows[name]["sm_clock_mhz"] = mhz
-            else:
-                tf = kq.to_coding_order(t, log2).T.contiguous()
-
-                def launch():
-                    kq.launch_dq(tf, *dev_args)
-            launch()
-            ms = _time_ms(launch, 21, per=10)
-            wrap_ms = _time_ms(
-                lambda: kern(t, qpar.ls, qpar.bd_shift, lam, lv, log2), 11)
-            plain_ms = _time_ms(
-                lambda: plain(t, qpar.ls, qpar.bd_shift, lam, lv, log2), 3)
-            # each input read once, each output written once: K1 reads
-            # int32 coefficients and writes int16 levels; K2's kernel
-            # writes int32
-            nbytes = (6 if tr else 8) * P * B + 4 * B + 8 * 1024
-            ops = OPS_PER_POS[name] * P * B
-            bytes_ms = nbytes / HBM_BYTES_S * 1e3
-            ops_ms = ops / OPS_S * 1e3
-            row = rows[name]
-            row["ms"] += ms
-            row["plain_ms"] += plain_ms
-            row["bound_ms"] += max(bytes_ms, ops_ms)
-            row["bytes_ms"] += bytes_ms
-            row["ops_ms"] += ops_ms
-            row["per_size"][s] = dict(
-                {"B": B, "P": P, "ms": ms, "wrapper_ms": wrap_ms,
-                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms)},
-                **extra)
-            log(f"{name} s={s:2d} B={B:6d} P={P:4d}: kernel {ms:.4f} ms, "
-                f"wrapper {wrap_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-                f"{max(bytes_ms, ops_ms):.4f} ms"
-                + (f"; device ms by lanes {json.dumps(extra['device_ms'])}, "
-                   f"launch rule {extra['lanes']} lane(s)" if tr else ""))
-    log(f"dq_trellis: SM clock {rows['dq_trellis']['sm_clock_mhz']:.0f} "
-        f"MHz under load (nvidia-smi)")
+                    def launch(lanes=None):
+                        ktr._launch_k1([job], *dev_args[2:], lanes)
+                    rule = ktr.k1_lanes([job])
+                    both = log2 == 2
+                else:
+                    def launch(lanes=None):
+                        kq._launch_k2(t, dev_args[0], dev_args[1],
+                                      dev_args[2], dev_args[3], log2, lanes)
+                    rule = kq.k2_lanes(log2, B)
+                    both = True
+                launch()
+                dev_ms = {lanes: _graph_ms(lambda: launch(lanes))
+                          for lanes in ((8, 1) if both else (8,))}
+                if s == 32 and frames == 8:
+                    rows[name]["sm_clock_mhz"] = _sm_clock_mhz(launch, 2000)
+                ms = _time_ms(launch, 21, per=10)
+                wrap_ms = _time_ms(
+                    lambda: kern(t, qpar.ls, qpar.bd_shift, lam, lv, log2), 11)
+                # as stage A calls it: every argument already on the card
+                wrap_dev_ms = _time_ms(
+                    lambda: kern(t, dev_args[0], dev_args[1], dev_args[2],
+                                 dev_args[3], log2), 11)
+                # each input read once, each output written once: int32
+                # coefficients in, int16 levels and an f32 rate out
+                nbytes = 6 * P * B + 4 * B + 8 * 1024
+                ops = OPS_PER_POS[name] * P * B
+                bytes_ms = nbytes / HBM_BYTES_S * 1e3
+                ops_ms = ops / OPS_S * 1e3
+                out = {"B": B, "P": P, "ms": ms, "device_ms": dev_ms,
+                       "lanes": rule, "wrapper_ms": wrap_ms,
+                       "wrapper_dev_args_ms": wrap_dev_ms,
+                       "bound_ms": max(bytes_ms, ops_ms)}
+                row = rows[name]
+                if frames == 8:
+                    plain_ms = _time_ms(
+                        lambda: plain(t, qpar.ls, qpar.bd_shift, lam, lv,
+                                      log2), 3)
+                    out["plain_ms"] = plain_ms
+                    row["ms"] += ms
+                    row["plain_ms"] += plain_ms
+                    row["bound_ms"] += max(bytes_ms, ops_ms)
+                    row["bytes_ms"] += bytes_ms
+                    row["ops_ms"] += ops_ms
+                    row["per_size"][s] = out
+                else:
+                    row["per_size_16_frames"][s] = out
+                log(f"{name} {frames:2d} frames s={s:2d} B={B:6d} P={P:4d}: "
+                    f"kernel {ms:.4f} ms (events), device ms by lanes "
+                    f"{json.dumps(dev_ms)}, launch rule {rule} lane(s); "
+                    f"wrapper {wrap_ms:.4f} ms (host args) / "
+                    f"{wrap_dev_ms:.4f} ms (device args)"
+                    + (f", plain {out['plain_ms']:.2f} ms" if frames == 8
+                       else "")
+                    + f", bound {max(bytes_ms, ops_ms):.4f} ms")
+        log(f"{name}: SM clock {rows[name]['sm_clock_mhz']:.0f} MHz under "
+            f"load at s = 32 (nvidia-smi)")
     return rows
 
 
@@ -448,6 +540,48 @@ def phase_k1_lanes_sweep():
         log(f"K1 4x4 B={B:6d}: 1 lane {out[B][1]:.5f} ms, 8 lanes "
             f"{out[B][8]:.5f} ms device; the rule takes "
             f"{ktr.k1_lanes([jb])} lane(s)")
+    return out
+
+
+def phase_k2_lanes_sweep():
+    """K2's two instantiations (1 and 8 lanes per block) at every size,
+    device time per launch in a CUDA graph, at B = 1/16, 1/8, 1/4, 1 and 2
+    times the 8-frame CIF chunk's batch of that size (prefixes of one
+    batch of DCT coefficients of residual noise); the two agree exactly
+    at the largest. The launch rule (quantize.k2_lanes) is read off this
+    sweep."""
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import transforms
+    W, H = CIF
+    rng = np.random.default_rng(23)
+    out = {}
+    for s in SIZES:
+        log2 = s.bit_length() - 1
+        b8 = 8 * (W // s) * (H // s) * N_CANDS
+        res = rng.integers(-24, 25, (2 * b8, s, s)).astype(np.int32)
+        t_all = transforms.forward_impl(torch.as_tensor(res, device="cuda"))
+        qpar, lam, lv = _qcase(log2, 32, False)
+        args = (torch.tensor([qpar.ls], dtype=torch.int32, device="cuda"),
+                torch.tensor([qpar.bd_shift], dtype=torch.int32,
+                             device="cuda"),
+                kq.table(lam, torch.int32, "cuda"),
+                kq.table(lv, torch.float32, "cuda"), log2)
+        a = kq._launch_k2(t_all, *args, 1)
+        b = kq._launch_k2(t_all, *args, 8)
+        torch.cuda.synchronize()
+        if _err(a, b) != 0:
+            raise AssertionError(f"K2 at s={s}: 1 lane != 8 lanes")
+        out[s] = {}
+        for B in (b8 // 16, b8 // 8, b8 // 4, b8, 2 * b8):
+            tb = t_all[:B]
+            out[s][B] = {lanes: _graph_ms(lambda: kq._launch_k2(tb, *args,
+                                                                lanes))
+                         for lanes in (1, 8)}
+            log(f"K2 s={s:2d} B={B:6d}: 1 lane {out[s][B][1]:.5f} ms, 8 "
+                f"lanes {out[s][B][8]:.5f} ms device; the rule takes "
+                f"{kq.k2_lanes(log2, B)} lane(s)")
     return out
 
 
@@ -907,8 +1041,11 @@ def main():
     build = phase_build()
     errs = phase_kernel_checks()
     errs["dq_trellis"] = max(errs["dq_trellis"], phase_k1_checks())
+    k2_err, k2_ops = phase_k2_checks()
+    errs["dq_greedy"] = max(errs["dq_greedy"], k2_err)
     rows = phase_kernel_timing(errs)
     sweep = phase_k1_lanes_sweep()
+    k2_sweep = phase_k2_lanes_sweep()
     phase_fma()
     main_path = phase_main_path()
     phase_card_vs_cpu()
@@ -938,14 +1075,26 @@ def main():
                          else "bytes"),
             "library_ms": None,
             "per_size": r["per_size"]})
+        kernels[-1].update(
+            sm_clock_mhz=r["sm_clock_mhz"],
+            device_ms_per_chunk=sum(v["device_ms"][v["lanes"]]
+                                    for v in r["per_size"].values()))
         if name == "dq_trellis":
-            kernels[-1].update(sm_clock_mhz=r["sm_clock_mhz"],
-                               ptxas=build["ptxas"],
+            kernels[-1].update(ptxas=build["ptxas"],
                                lanes_sweep_4x4_ms=sweep)
+        else:
+            kernels[-1].update(
+                per_size_16_frames=r["per_size_16_frames"],
+                device_ms_per_16_frame_chunk=sum(
+                    v["device_ms"][v["lanes"]]
+                    for v in r["per_size_16_frames"].values()),
+                lanes_sweep_ms=k2_sweep, ops_one_call=k2_ops,
+                blocks_smem=build["k2_blocks_smem"])
     # K1 on the device commit path: per launch (one per wave), the mean
     # over the scan's launches (device time traced by torch.profiler
-    # inside the scan; bound and plain time from each launch's jobs). host_device_ms: the same launches timed by CUDA
-    # events around the launch helper.
+    # inside the scan; bound and plain time from each launch's jobs).
+    # host_device_ms: the same launches timed by CUDA events around the
+    # launch helper.
     scan = dev["scan"]
     kernels.append({
         "name": "dq_trellis", "entry": "trellis_rate_batch", "route": "cuda",

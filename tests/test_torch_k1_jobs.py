@@ -195,7 +195,7 @@ def test_order_table_concatenates_the_coding_orders():
     kernel's order_offset computes it."""
     tab = ttl.order_table(torch.device("cpu")).numpy()
     assert tab.dtype == np.int16 and tab.shape == (16 + 64 + 256 + 1024,)
-    for lg in ttl.LOG2_SIZES:
+    for lg in tkq.LOG2_SIZES:
         P = 1 << (2 * lg)
         off = (P - 16) // 3
         assert (tab[off:off + P] == tkq.coding_order(lg)).all()
@@ -214,7 +214,7 @@ def test_order_table_is_one_upload_per_device(monkeypatch):
     def fake(device):
         made.append(device)
         return object()
-    monkeypatch.setattr(ttl, "_order_table", fake)
+    monkeypatch.setattr(tkq, "_order_table", fake)
     a = ttl.order_table(torch.device("cuda"))
     assert ttl.order_table(torch.device("cuda", 0)) is a
     assert ttl.order_table("cuda:0") is a

@@ -54,7 +54,8 @@ K1_MAX_JOBS = 8
 
 
 class K1Job(ctypes.Structure):
-    """ctypes mirror of csrc/dq_scan.cu's K1Job: one job of a K1 launch."""
+    """ctypes mirror of csrc/dq_scan.cu's K1Job: one job of a K1 launch,
+    or K2's one job."""
     _fields_ = [("t", ctypes.c_void_p), ("q", ctypes.c_void_p),
                 ("rate", ctypes.c_void_p), ("ls", ctypes.c_void_p),
                 ("bd", ctypes.c_void_p), ("B", ctypes.c_int),
@@ -73,12 +74,12 @@ class K1Desc(ctypes.Structure):
 
 _SIGNATURES = {
     "dq_scan": {
-        # tf, P, B, ls, bd, per_block, lam_dq, lv, q, rate, stream
-        "dq_greedy_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                             ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_void_p],
+        # desc (job[0] and lanes), lam_dq, lv, coding-order tables, stream
+        "dq_greedy_launch": [K1Desc, ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_void_p],
+        # lanes, log2 of the block size
+        "dq_greedy_blocks_per_cta": [ctypes.c_int, ctypes.c_int],
+        "dq_greedy_smem_bytes": [ctypes.c_int, ctypes.c_int],
         # desc, lam_dq, lv, coding-order tables, stream
         "dq_trellis_launch": [K1Desc, ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_void_p],

@@ -8,16 +8,28 @@
 //                mixed block sizes (the device commit engine's wave).
 // K2 dq_greedy   replaces the lax.scan in wrenc_tpu/kernels/quantize.py::
 //                greedy_depquant: greedy two-candidate dep-quant with the
-//                RD level rate. One thread per block; coefficients arrive
-//                in coding order, position-major (P, B), and it writes q
-//                (P, B) int32 that the wrapper permutes back to raster.
+//                RD level rate. 128-thread CTAs of about 4,096 positions;
+//                1 or 8 lanes per block walk the chain.
 //
 // Bound: both are sequential scans over the P coding-order positions. The
 // DRAM traffic is one read of the coefficients and one write of the
 // levels; the work is a fixed number of 32-bit integer operations per
-// position. At the small batches of the commit scan (tens of blocks) and
-// at s = 32 in stage A (4,752 blocks, ~1 warp per SM with one thread per
-// block) the dependent chain of P steps sets the time, not the bound.
+// position. At the small batches of the commit scan (tens of blocks) the
+// dependent chain of P steps sets K1's time, not the bound.
+//
+// K2's design: the greedy choice at a position depends on the carried
+// state (q_state, trailing) only through delta = q_state >> 1 and
+// trailing, so the position's step is a map of the 8 states, fixed by
+// its coefficient: one word of 8 nibbles (k2_record). All the work of
+// the choice (the floor division, four candidate costs) is done for
+// every position in parallel, coalesced in t's memory order, into
+// shared-memory records; the chain is then a shift and a mask per
+// position (k2_walk; with 8 lanes per block segment-parallel, k2_map);
+// the levels are recomputed from the entry states in parallel and
+// written as int16 in raster order; one lane per block sums the rates
+// in ascending coding order (P dependent f32 adds: K2's chain floor).
+// It reads t in place (row- or column-major blocks) and writes nothing
+// but q and rate; lam_dq / lv are read through __ldg (L1-resident).
 //
 // K1's design against that chain (one warp per CTA; a launch takes up to
 // K1_MAX_JOBS jobs of mixed sizes, CTAs of the largest size first):
@@ -57,6 +69,7 @@ constexpr int K1_MAX_JOBS = 8;
 // column-major when t_transposed is 1, as the DCT leaves them) -> levels
 // (row-major int16) and committed-level rates. ls / bd: a pointer read at
 // [stride * b] (stride 0 or 1), or, when the pointer is null, the value.
+// K2 takes one such job (job[0] of a K1Desc, whose lanes it reads).
 struct K1Job {
   const int* t;
   int16_t* q;
@@ -103,77 +116,12 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 __device__ __forceinline__ int clip1023(int v) {
   return v < 0 ? 0 : (v > TAB - 1 ? TAB - 1 : v);
 }
-// Q_STATE_TRANS[q][parity] in closed form
-__device__ __forceinline__ int trans_next(int q, int parity) {
-  return ((q ^ parity) & 1) * 2 + (q >> 1);
-}
-
-__device__ __forceinline__ void load_tables(const int* lam_dq, const float* lv,
-                                            int* s_lam, float* s_lv) {
-  for (int i = threadIdx.x; i < TAB; i += blockDim.x) {
-    s_lam[i] = lam_dq[i];
-    s_lv[i] = lv[i];
-  }
-  __syncthreads();
-}
-
 // level candidate a for (delta, k) at a coefficient: the quantizer's
 // a0 = (s // ls + delta) // 2, plus k; zero coefficients have only a = 0
 __device__ __forceinline__ int level_cand(int base, int delta, int k,
                                           bool zero) {
   return zero ? 0 : floordiv(base + delta, 2) + k;
 }
-
-__global__ void dq_greedy_kernel(const int* __restrict__ tf, int P, int B,
-                                 const int* __restrict__ ls_p,
-                                 const int* __restrict__ bd_p, int per_block,
-                                 const int* __restrict__ lam_dq,
-                                 const float* __restrict__ lv,
-                                 int* __restrict__ q, float* __restrict__ rate) {
-  __shared__ int s_lam[TAB];
-  __shared__ float s_lv[TAB];
-  load_tables(lam_dq, lv, s_lam, s_lv);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int ls = ls_p[per_block ? b : 0];
-  const int bd = bd_p[per_block ? b : 0];
-  const int bdo = (1 << bd) >> 1;
-  int q_state = 0;
-  bool trailing = true;
-  float r_sum = 0.0f;
-  for (int p = 0; p < P; ++p) {
-    const int tc = tf[(size_t)p * B + b];
-    const int delta = q_state > 1 ? 1 : 0;
-    const bool neg = tc < 0;
-    const int atc = tc < 0 ? -tc : tc;
-    int a = 0;
-    if (tc != 0) {
-      const int s = wadd(wshl(atc, bd), neg ? bdo : -bdo);
-      const int a0 = floordiv(floordiv(s, ls) + delta, 2);
-      int cst[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int ak = a0 + k;
-        const int mag = ak == 0 ? 0 : 2 * ak - delta;
-        const int dq = wadd(wmul(mag, ls), bdo) >> bd;
-        const int d = atc - dq;
-        const int dist = d < 0 ? -d : d;
-        const int bits = (ak == 0 && trailing) ? 0 : ak + 1;
-        cst[k] = wadd(wmul(128, dist), s_lam[clip1023(bits)]);
-      }
-      a = cst[1] < cst[0] ? a0 + 1 : a0;       // strict <: ties keep a0
-    }
-    const int mag = a == 0 ? 0 : 2 * a - delta;
-    q[(size_t)p * B + b] = neg ? -mag : mag;
-    const float r = a == 0 ? (trailing ? 0.0f : s_lv[0]) : s_lv[clip1023(a)];
-    r_sum = r_sum + r;
-    trailing = trailing && a == 0;
-    q_state = trans_next(q_state, a & 1);
-  }
-  rate[b] = r_sum;
-}
-
-int grid_for(int B, int threads) { return (B + threads - 1) / threads; }
 
 // ------------------------------------------------------------------- K1
 
@@ -606,19 +554,259 @@ dq_trellis_kernel(const K1Desc desc, const int* __restrict__ lam,
   }
 }
 
+// ------------------------------------------------------------------- K2
+
+// One CTA of K2_THREADS threads takes k2_blocks(G, P) blocks, about
+// K2_POS_PER_CTA positions; G of its lanes walk each block's chain.
+constexpr int K2_THREADS = 128;
+constexpr int K2_POS_PER_CTA = 4096;
+// the record bits that survive the walk: k of each (delta, trailing)
+// input j at bit 4j + 3, the sign at bit 19, a zero coefficient at 23
+constexpr uint32_t K2_FLAGS = 0x00888888u;
+
+__host__ __device__ constexpr int k2_blocks(int G, int P) {
+  return (K2_POS_PER_CTA / P > K2_THREADS / G) ? K2_THREADS / G
+         : (K2_POS_PER_CTA / P > 0 ? K2_POS_PER_CTA / P : 1);
+}
+// words of one block in a record array: one pad word per 32, so that a
+// walk down a column of a column-major block meets no bank conflict,
+// and one more, so that lanes walking different blocks do not either
+__host__ __device__ constexpr int k2_stride(int P) {
+  return P + (P >> 5) + 1;
+}
+__device__ __forceinline__ int k2_pad(int m) { return m + (m >> 5); }
+// two record arrays, the per-block ls / bd and the walk's order
+__host__ __device__ constexpr int k2_smem_bytes(int G, int P) {
+  return 8 * k2_blocks(G, P) * (k2_stride(P) + 1) + 2 * P;
+}
+
+// One coefficient's record: the greedy choice depends on the carried
+// state (q_state, trailing) only through delta = q_state >> 1 and
+// trailing, so the step from state D = 2 q_state + trailing to the next
+// state is a map of 8 states fixed by the coefficient. Nibble D of the
+// word holds D's next state; bit 3 of nibble j = 2 delta + trailing the
+// chosen k of that input; bits 19 / 23 the sign / a zero coefficient.
+// *base: floor(s / ls), from which a level is recomputed.
+__device__ __forceinline__ uint32_t k2_record(int tc, int ls, int bd,
+                                              const int* __restrict__ lam,
+                                              int lam0, int* base_out) {
+  const int bdo = (1 << bd) >> 1;
+  const bool neg = tc < 0, zero = tc == 0;
+  const int atc = neg ? -tc : tc;
+  const int s = wadd(wshl(atc, bd), neg ? bdo : -bdo);
+  const int base = zero ? 0 : floordiv(s, ls);
+  *base_out = base;
+  uint32_t w = (neg ? 1u << 19 : 0u) | (zero ? 1u << 23 : 0u);
+#pragma unroll
+  for (int delta = 0; delta < 2; ++delta) {
+    const int a0 = floordiv(base + delta, 2);
+    int c[2][2];                                   // [k][trailing]
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int ak = a0 + k;
+      const int mag = ak == 0 ? 0 : 2 * ak - delta;
+      const int dq = wadd(wmul(mag, ls), bdo) >> bd;
+      const int d = atc - dq;
+      const int dc = wmul(128, d < 0 ? -d : d);
+      c[k][0] = wadd(dc, __ldg(lam + clip1023(ak + 1)));
+      c[k][1] = ak == 0 ? wadd(dc, lam0) : c[k][0];   // bits 0 if trailing
+    }
+#pragma unroll
+    for (int tr = 0; tr < 2; ++tr) {
+      const int k = c[1][tr] < c[0][tr] ? 1 : 0;       // strict <: ties keep a0
+      const int a = zero ? 0 : a0 + k;
+      // from q_state = 2 delta (D = 4 delta + tr) the level's parity p
+      // leads to q_state 2p + delta; from 2 delta + 1 to 2 (p ^ 1) + delta
+      const uint32_t nx =
+          4u * (uint32_t)(a & 1) + 2u * delta + (tr && a == 0 ? 1u : 0u);
+      w |= (uint32_t)k << (4 * (2 * delta + tr) + 3);
+      w |= nx << (4 * (4 * delta + tr));
+      w |= (nx ^ 4u) << (4 * (4 * delta + 2 + tr));
+    }
+  }
+  return w;
+}
+
+// Maps every state at position lo to the state after position hi - 1
+// through the records rb[ord[p]] (8 walks at once); nibble s of the
+// result is the state reached from s.
+__device__ __forceinline__ uint32_t k2_map(const uint32_t* rb,
+                                           const int16_t* ord, int lo,
+                                           int hi) {
+  int st[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) st[s] = s;
+  for (int p0 = lo; p0 < hi; p0 += 2) {            // hi - lo is even
+    const uint32_t w0 = rb[ord[p0]], w1 = rb[ord[p0 + 1]];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      st[s] = (w0 >> (4 * st[s])) & 7u;
+      st[s] = (w1 >> (4 * st[s])) & 7u;
+    }
+  }
+  uint32_t map = 0;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) map |= (uint32_t)st[s] << (4 * s);
+  return map;
+}
+
+// Walks positions lo..hi-1 from state D, leaving in each record its
+// flags and the state entering it. The records are loaded CH at a time
+// ahead of the chain, whose step is a shift and a mask.
+template <int CH>
+__device__ __forceinline__ void k2_walk(uint32_t* rb, const int16_t* ord,
+                                        int lo, int hi, int D) {
+  for (int p0 = lo; p0 < hi; p0 += CH) {
+    int ix[CH];
+    uint32_t w[CH];
+#pragma unroll
+    for (int u = 0; u < CH; ++u) ix[u] = ord[p0 + u];
+#pragma unroll
+    for (int u = 0; u < CH; ++u) w[u] = rb[ix[u]];
+#pragma unroll
+    for (int u = 0; u < CH; ++u) {
+      rb[ix[u]] = (w[u] & K2_FLAGS) | (uint32_t)D;
+      D = (int)((w[u] >> (4 * D)) & 7u);
+    }
+  }
+}
+
+// K2. G lanes per block walk its chain (G = 1: one lane walks all P
+// positions; G = 8: each lane maps its segment of P / 8 positions for
+// all 8 entry states, the maps are chained across the lanes by
+// shuffles, and each lane walks its segment). Everything else is
+// parallel over the CTA's positions, in the memory order of t and q.
+template <int G>
+__global__ void __launch_bounds__(K2_THREADS)
+dq_greedy_kernel(const K1Job job, const int* __restrict__ lam,
+                 const float* __restrict__ lv,
+                 const int16_t* __restrict__ order_all) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int log2_n = job.log2_n, lg2P = 2 * log2_n;
+  const int P = 1 << lg2P;
+  const int NB = k2_blocks(G, P), stride = k2_stride(P);
+  uint32_t* rec = reinterpret_cast<uint32_t*>(smem);  // record, then state
+  int* aux = reinterpret_cast<int*>(rec + NB * stride);  // base, then rate
+  int* s_ls = aux + NB * stride;
+  int* s_bd = s_ls + NB;
+  int16_t* ord = reinterpret_cast<int16_t*>(s_bd + NB);
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * NB;
+  const int nb = min(NB, job.B - b0);                 // blocks present
+  const int mask_n = (1 << log2_n) - 1;
+  const bool tt = job.t_transposed != 0;
+  // offset in t of raster index r = y * n + x (an involution)
+  auto tix = [=](int r) {
+    return tt ? ((r & mask_n) << log2_n) | (r >> log2_n) : r;
+  };
+  // the walk's order: coding position -> padded record index
+  const int16_t* og = order_all + order_offset(log2_n);
+  for (int i = tid; i < P; i += K2_THREADS) ord[i] = (int16_t)k2_pad(tix(og[i]));
+  for (int i = tid; i < nb; i += K2_THREADS) {
+    s_ls[i] = job.ls ? job.ls[job.ls_stride * (b0 + i)] : job.ls_val;
+    s_bd[i] = job.bd ? job.bd[job.bd_stride * (b0 + i)] : job.bd_val;
+  }
+  __syncthreads();
+
+  // records of every position, in t's memory order (coalesced loads)
+  const int lam0 = __ldg(lam);
+  const int* tb = job.t + (size_t)b0 * P;
+  const int n = nb << lg2P;
+  for (int f = tid; f < n; f += K2_THREADS) {
+    const int bl = f >> lg2P, i = bl * stride + k2_pad(f & (P - 1));
+    int base;
+    rec[i] = k2_record(__ldg(tb + f), s_ls[bl], s_bd[bl], lam, lam0, &base);
+    aux[i] = base;
+  }
+  __syncthreads();
+
+  // the chain; lanes of absent blocks walk stale words and store nothing
+  // outside shared memory (with G = 8 the lanes of a block are 8 lanes of
+  // one warp, which alone take part in its shuffles)
+  if (tid < NB * G) {
+    const int bl = tid / G, d = tid % G;
+    uint32_t* rb = rec + bl * stride;
+    const int S = P / G, lo = d * S, hi = lo + S;
+    int D = 1;                                        // q_state 0, trailing
+    if constexpr (G > 1) {
+      const uint32_t map = k2_map(rb, ord, lo, hi);
+      const int gbase = (tid & 31) & ~(G - 1);
+      const unsigned gmask = ((1u << G) - 1u) << gbase;
+#pragma unroll
+      for (int l = 0; l < G - 1; ++l) {
+        const uint32_t ml = __shfl_sync(gmask, map, gbase + l);
+        if (l < d) D = (int)((ml >> (4 * D)) & 7u);
+      }
+    }
+    if (S % 8) k2_walk<2>(rb, ord, lo, hi, D);
+    else k2_walk<8>(rb, ord, lo, hi, D);
+  }
+  __syncthreads();
+
+  // levels (int16, raster order, coalesced) and per-position rates
+  const float lv0 = __ldg(lv);
+  int16_t* qb = job.q + (size_t)b0 * P;
+  for (int f = tid; f < n; f += K2_THREADS) {
+    const int bl = f >> lg2P;
+    const int i = bl * stride + k2_pad(tix(f & (P - 1)));
+    const uint32_t w = rec[i];
+    const int D = (int)(w & 7u), tr = D & 1, delta = D >> 2;
+    const int k = (int)((w >> (4 * (2 * delta + tr) + 3)) & 1u);
+    const int a = level_cand(aux[i], delta, k, (w >> 23) & 1u);
+    const int mag = a == 0 ? 0 : 2 * a - delta;
+    qb[f] = (int16_t)(((w >> 19) & 1u) ? -mag : mag);
+    const float r = a == 0 ? (tr ? 0.0f : lv0) : __ldg(lv + clip1023(a));
+    aux[i] = __float_as_int(r);
+  }
+  __syncthreads();
+
+  // the rate, summed in ASCENDING coding order (the reference's f32
+  // accumulation order), one lane per block
+  for (int bl = tid; bl < nb; bl += K2_THREADS) {
+    const int* ab = aux + bl * stride;
+    float r_sum = 0.0f;
+#pragma unroll 8
+    for (int p = 0; p < P; ++p) r_sum = r_sum + __int_as_float(ab[ord[p]]);
+    job.rate[b0 + bl] = r_sum;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched).
-int dq_greedy_launch(const int* tf, int P, int B, const int* ls,
-                     const int* bd, int per_block, const int* lam_dq,
-                     const float* lv, int* q, float* rate, void* stream) {
-  const int threads = 128;
-  if (B > 0) {
-    dq_greedy_kernel<<<grid_for(B, threads), threads, 0,
-                       (cudaStream_t)stream>>>(tf, P, B, ls, bd, per_block,
-                                               lam_dq, lv, q, rate);
+// K2's blocks per CTA and dynamic shared memory per CTA, for lanes lanes
+// per block (1 or 8) and blocks of 2^log2_n x 2^log2_n.
+int dq_greedy_blocks_per_cta(int lanes, int log2_n) {
+  const int P = 1 << (2 * log2_n);
+  return lanes == 8 ? k2_blocks(8, P) : k2_blocks(1, P);
+}
+int dq_greedy_smem_bytes(int lanes, int log2_n) {
+  const int P = 1 << (2 * log2_n);
+  return lanes == 8 ? k2_smem_bytes(8, P) : k2_smem_bytes(1, P);
+}
+
+// One launch of K2 over desc.job[0] (desc.n_jobs is 1, or 0 for no
+// blocks), with desc.lanes (1 or 8) lanes per block in the chain; the
+// grid is ceil(B / blocks per CTA). At most 34.8 KB of dynamic shared
+// memory per CTA, below the 48 KB that needs no opt-in. Returns the
+// first CUDA error (0 = launched).
+int dq_greedy_launch(K1Desc desc, const int* lam_dq, const float* lv,
+                     const int16_t* order, void* stream) {
+  const K1Job& job = desc.job[0];
+  if (desc.n_jobs != 1 || job.B <= 0) return 0;
+  const int nb = dq_greedy_blocks_per_cta(desc.lanes, job.log2_n);
+  const int grid = (job.B + nb - 1) / nb;
+  const int smem = dq_greedy_smem_bytes(desc.lanes, job.log2_n);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (desc.lanes == 8) {
+    dq_greedy_kernel<8><<<grid, K2_THREADS, smem, st>>>(job, lam_dq, lv,
+                                                         order);
+  } else if (desc.lanes == 1) {
+    dq_greedy_kernel<1><<<grid, K2_THREADS, smem, st>>>(job, lam_dq, lv,
+                                                         order);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,13 @@ clip to [0, 1023].
 
 `greedy_depquant` launches the hand-written CUDA kernel K2 (`dq_greedy`
 in csrc/dq_scan.cu) for CUDA tensors and runs `greedy_depquant_plain`,
-its plain PyTorch twin, for CPU tensors.
+its plain PyTorch twin, for CPU tensors. K2 reads the raster (B, n, n)
+int32 coefficients in place through the coding-order table and writes
+raster int16 levels, so a launch allocates q and rate and nothing else.
+
+The launch contract K1 (kernels/trellis.py) and K2 share lives here: the
+coding-order table (`order_table`), the quant parameters by value or in
+place (`_param`), and one job of the C struct K1Job (`fill_job`).
 """
 import functools
 
@@ -18,6 +24,8 @@ import torch
 
 from ..spec import quant as squant
 from . import _build
+
+LOG2_SIZES = range(2, 6)
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,7 +88,13 @@ def param_rows(v, B, device):
 
 
 def table(v, dtype, device):
-    t = torch.as_tensor(v, device=device).to(dtype).contiguous()
+    """A (1024,) rate table as a contiguous `dtype` tensor on `device`;
+    one already so is passed as it is."""
+    if (isinstance(v, torch.Tensor) and v.dtype == dtype
+            and v.device == device and v.is_contiguous()):
+        t = v
+    else:
+        t = torch.as_tensor(v, device=device).to(dtype).contiguous()
     if t.shape != (1024,):
         raise ValueError(f"rate table of shape {tuple(t.shape)}, want (1024,)")
     return t
@@ -109,59 +123,172 @@ def trans_next(q_state, parity):
     return ((q_state ^ parity) & 1) * 2 + (q_state >> 1)
 
 
+# K2 walks each block's chain with 8 lanes (segment-parallel), or with 1
+# lane for one launch of at least K2_ONE_LANE_MIN_B blocks of 4 x 4:
+# there the card is full either way, and one lane per block issues fewer
+# instructions. From chip_smoke.py's sweep of both over B at every size
+# on an H100 (PERF.md): at 4 x 4, 8 lanes are 1.6x faster at 19,008
+# blocks, 1 lane 1.1x faster from 76,032 on; at 8 x 8 .. 32 x 32, 8 lanes
+# are never slower by more than 1 %.
+K2_ONE_LANE_MIN_B = 65536
+
+
+def k2_lanes(log2_n, B):
+    """K2's lanes per block for B blocks of 2^log2_n x 2^log2_n: 1 for 4 x 4
+    blocks with B >= K2_ONE_LANE_MIN_B, else 8. The rule of the launch."""
+    return 1 if log2_n == 2 and B >= K2_ONE_LANE_MIN_B else 8
+
+
 def greedy_depquant(t, ls, bd_shift, lam_dq, log2_n, lv_table):
     """Greedy dependent quantization + RD level-rate, batched.
 
     t: (B, n, n) int32 transform coefficients; ls/bd_shift scalars or (B,);
     lam_dq: (1024,) int32 lambda-scaled quantizer rate table; lv_table:
     (1024,) f32 RD level-rate table. Returns (q (B,n,n) int16 stored
-    levels, rate (B,) f32). CUDA tensors launch kernel K2; CPU tensors
-    take greedy_depquant_plain."""
+    levels, rate (B,) f32). CUDA tensors launch kernel K2, which reads t
+    in place (each block row- or column-major, the blocks packed) and
+    writes q itself; CPU tensors take greedy_depquant_plain."""
     if t.device.type == 'cpu':
         return greedy_depquant_plain(t, ls, bd_shift, lam_dq, log2_n,
                                      lv_table)
     if not t.is_cuda:
         raise ValueError(f"greedy_depquant: unsupported device {t.device}")
-    tf = to_coding_order(t, log2_n).T.contiguous()        # (P, B)
-    q, rate = launch_dq(tf, ls, bd_shift, lam_dq, lv_table)
+    out = _launch_k2(t, ls, bd_shift, lam_dq, lv_table, log2_n)
     greedy_depquant.launches += 1
-    return from_coding_order(q.T, log2_n), rate
+    return out
 
 
 greedy_depquant.launches = 0
 
 
-def kernel_params(ls, bd_shift, B, device):
-    """ls / bd_shift for a kernel launch: both (1,) with per_block 0, or
-    both (B,) with per_block 1."""
-    lsr = param_rows(ls, B, device)
-    bdr = param_rows(bd_shift, B, device)
-    if lsr.numel() == 1 and bdr.numel() == 1:
-        return lsr.contiguous(), bdr.contiguous(), 0
-    return (lsr.expand(B).contiguous(), bdr.expand(B).contiguous(), 1)
-
-
-def launch_dq(tf, ls, bd_shift, lam_dq, lv_table):
-    """One launch of K2 (dq_greedy) from csrc/dq_scan.cu, the one place
-    that calls its C interface. tf: (P, B) contiguous int32 coefficients
-    in coding order, position-major, on a CUDA device; the other
-    arguments as in greedy_depquant. Returns (levels (P, B) int32, rate
-    (B,) f32). Raises on a launch error. The wrapper, not this helper,
-    counts main-path launches. (K1 is launched by kernels/trellis.py.)"""
-    P, B = tf.shape
-    dev = tf.device
-    lsr, bdr, per_block = kernel_params(ls, bd_shift, B, dev)
+def _launch_k2(t, ls, bd_shift, lam_dq, lv_table, log2_n, lanes=None):
+    """One K2 launch: allocates q and rate (nothing else), packs the
+    descriptor (k2_desc; lanes None takes k2_lanes), launches on the
+    current stream and raises on a launch error. The wrapper counts
+    main-path launches."""
+    dev = t.device
+    B = t.shape[0]
+    q = torch.empty(t.shape, dtype=torch.int16, device=dev)
+    rate = torch.empty((B,), dtype=torch.float32, device=dev)
+    # every tensor the kernel reads stays referenced until it is enqueued:
+    # a temporary freed earlier could be handed to the next upload
+    ls, bd = _param(ls, B, dev), _param(bd_shift, B, dev)
     lam = table(lam_dq, torch.int32, dev)
     lv = table(lv_table, torch.float32, dev)
-    q = torch.empty((P, B), dtype=torch.int32, device=dev)
-    rate = torch.empty((B,), dtype=torch.float32, device=dev)
+    desc = k2_desc(t, ls, bd, log2_n, q, rate, lanes)
     with torch.cuda.device(dev):
         rc = _build.lib("dq_scan").dq_greedy_launch(
-            tf.data_ptr(), P, B, lsr.data_ptr(), bdr.data_ptr(), per_block,
-            lam.data_ptr(), lv.data_ptr(), q.data_ptr(), rate.data_ptr(),
+            desc, lam.data_ptr(), lv.data_ptr(), order_table(dev).data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "dq_greedy")
     return q, rate
+
+
+def k2_desc(t, ls, bd_shift, log2_n, q, rate, lanes=None):
+    """K2's launch descriptor: a K1Desc whose job[0] is the one job
+    (fill_job's contract and checks; n_jobs 0 when B = 0) and whose lanes
+    are K2's lanes per block, 1 or 8 (None: k2_lanes)."""
+    desc = _build.K1Desc()
+    desc.lanes = k2_lanes(log2_n, t.shape[0]) if lanes is None else lanes
+    if desc.lanes not in (1, 8):
+        raise ValueError(f"k2_desc: {desc.lanes} lanes per block")
+    desc.n_jobs = int(fill_job(desc.job[0], (t, ls, bd_shift, log2_n),
+                               (q, rate)))
+    return desc
+
+
+def order_table(device):
+    """The coding orders of log2 sizes 2..5 concatenated (1,360 int16 raster
+    indices; size log2_n's starts at (4^log2_n - 16) / 3), on `device`;
+    uploaded once per device ('cuda' and 'cuda:<current>' are one)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _order_table(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _order_table(device):
+    return torch.as_tensor(np.concatenate(
+        [coding_order(lg) for lg in LOG2_SIZES]).astype(np.int16),
+        device=device)
+
+
+def _param(v, B, device):
+    """A quant parameter as K1 and K2 take it: a Python int (passed by
+    value) or an int32 tensor of 1 or B values on the device (read in
+    place; one already so is passed as it is)."""
+    if isinstance(v, torch.Tensor):
+        if (v.dtype == torch.int32 and v.dim() == 1 and v.is_contiguous()
+                and v.device == device):
+            return v
+        return v.to(device=device, dtype=torch.int32).reshape(-1).contiguous()
+    a = np.asarray(v)
+    if a.ndim == 0:
+        return int(a)
+    return param_rows(a, B, device)
+
+
+def t_layout(t):
+    """0 for packed row-major (B, n, n) blocks, 1 for packed column-major
+    ones (the DCT's output: strides (n*n, 1, n)), None otherwise."""
+    n = t.shape[-1]
+    sb, sy, sx = t.stride()
+    if t.shape[0] > 1 and sb != n * n:
+        return None
+    return {(n, 1): 0, (1, n): 1}.get((sy, sx))
+
+
+def fill_job(j, job, out):
+    """Fills the K1Job j (csrc/dq_scan.cu) for job (t, ls, bd_shift,
+    log2_n) and its outputs (q, rate), from shapes and data pointers
+    only (no tensor value is read, so it never synchronizes with the
+    device). Returns False, leaving j unfilled, for B = 0.
+
+    t: (B, n, n) int32, n = 2^log2_n with log2_n in 2..5, each block
+    row- or column-major and the blocks packed (read in place); ls /
+    bd_shift: a Python int (passed by value) or a contiguous int32
+    tensor of 1 or B values on t's device; q: (B, n, n) int16 and rate:
+    (B,) f32, contiguous. Raises ValueError on anything else."""
+    t, ls, bd, lg = job
+    q, rate = out
+    if lg not in LOG2_SIZES:
+        raise ValueError(f"log2 size {lg} not in 2..5")
+    N = 1 << lg
+    if t.dim() != 3 or tuple(t.shape[1:]) != (N, N):
+        raise ValueError(f"blocks of shape {tuple(t.shape)}, "
+                         f"want (B, {N}, {N})")
+    B = t.shape[0]
+    layout = t_layout(t)
+    if t.dtype != torch.int32 or layout is None:
+        raise ValueError("t must be int32, each block dense row- or "
+                         "column-major and the blocks packed")
+    if (q.dtype != torch.int16 or q.shape != t.shape
+            or not q.is_contiguous() or rate.dtype != torch.float32
+            or tuple(rate.shape) != (B,) or not rate.is_contiguous()):
+        raise ValueError("outputs must be (B, n, n) int16 and (B,) f32, "
+                         "contiguous")
+    if B == 0:
+        return False
+    j.t, j.q, j.rate = t.data_ptr(), q.data_ptr(), rate.data_ptr()
+    j.B, j.log2_n, j.t_transposed = B, lg, layout
+    for name, v in (("ls", ls), ("bd", bd)):
+        if isinstance(v, torch.Tensor):
+            if (v.dtype != torch.int32 or v.dim() != 1
+                    or not v.is_contiguous() or v.numel() not in (1, B)
+                    or v.device != t.device):
+                raise ValueError(
+                    f"{name} must be a contiguous int32 tensor of 1 or {B} "
+                    f"values on {t.device}, got {v.dtype} "
+                    f"{tuple(v.shape)} on {v.device}")
+            setattr(j, name, v.data_ptr())
+            setattr(j, name + "_stride", int(v.numel() > 1))
+        elif isinstance(v, int):
+            setattr(j, name + "_val", v)
+        else:
+            raise ValueError(f"{name} must be an int or a tensor, got "
+                             f"{type(v).__name__}")
+    return True
 
 
 def greedy_depquant_plain(t, ls, bd_shift, lam_dq, log2_n, lv_table):

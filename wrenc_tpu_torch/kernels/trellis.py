@@ -17,18 +17,15 @@ gather, transpose, scatter or scratch tensor: the wrapper allocates the
 outputs and packs a descriptor of its jobs (`pack_jobs`: pointers and
 shapes only, passed to the kernel by value).
 """
-import functools
-
-import numpy as np
 import torch
 
 from . import _build
-from .quantize import (coding_order, from_coding_order, param_rows, table,
-                       to_coding_order, trans_next)
+from .quantize import (_param, fill_job, from_coding_order, order_table,
+                       param_rows, t_layout, table, to_coding_order,
+                       trans_next)
 
 BIG = 1 << 29
 K1_MAX_JOBS = _build.K1_MAX_JOBS
-LOG2_SIZES = range(2, 6)
 # K1 runs 8 lanes per block of coefficients (4 blocks per one-warp CTA),
 # or 1 lane (32 blocks per CTA) for a launch of one job of 4 x 4 blocks
 # and at least ONE_LANE_MIN_B blocks: stage A's smallest size, where the
@@ -81,34 +78,6 @@ def trellis_rate_batch(jobs, lam_dq, lv_table):
 trellis_rate_batch.launches = 0
 
 
-def order_table(device):
-    """The coding orders of log2 sizes 2..5 concatenated (1,360 int16 raster
-    indices; size log2_n's starts at (4^log2_n - 16) / 3), on `device`;
-    uploaded once per device ('cuda' and 'cuda:<current>' are one)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return _order_table(device)
-
-
-@functools.lru_cache(maxsize=None)
-def _order_table(device):
-    return torch.as_tensor(np.concatenate(
-        [coding_order(lg) for lg in LOG2_SIZES]).astype(np.int16),
-        device=device)
-
-
-def _param(v, B, device):
-    """A quant parameter as K1 takes it: a Python int (passed by value) or
-    an int32 tensor of 1 or B values on the device (read in place)."""
-    if isinstance(v, torch.Tensor):
-        return v.to(device=device, dtype=torch.int32).reshape(-1).contiguous()
-    a = np.asarray(v)
-    if a.ndim == 0:
-        return int(a)
-    return param_rows(a, B, device)
-
-
 def _launch_k1(jobs, lam_dq, lv_table, lanes=None):
     """One K1 launch for `jobs` (all on one CUDA device). Allocates the
     outputs, packs the descriptor (lanes: see pack_jobs), launches on the
@@ -122,7 +91,7 @@ def _launch_k1(jobs, lam_dq, lv_table, lanes=None):
     packed, outs = [], []
     for t, ls, bd, lg in jobs:
         t = t.to(torch.int32)
-        if _t_layout(t) is None:
+        if t_layout(t) is None:
             t = t.contiguous()
         B = t.shape[0]
         packed.append((t, _param(ls, B, dev), _param(bd, B, dev), lg))
@@ -135,16 +104,6 @@ def _launch_k1(jobs, lam_dq, lv_table, lanes=None):
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "dq_trellis")
     return outs
-
-
-def _t_layout(t):
-    """0 for packed row-major (B, n, n) blocks, 1 for packed column-major
-    ones (the DCT's output: strides (n*n, 1, n)), None otherwise."""
-    n = t.shape[-1]
-    sb, sy, sx = t.stride()
-    if t.shape[0] > 1 and sb != n * n:
-        return None
-    return {(n, 1): 0, (1, n): 1}.get((sy, sx))
 
 
 def k1_lanes(jobs):
@@ -163,16 +122,14 @@ def pack_jobs(jobs, outs, lanes=None):
     their outputs [(q, rate)], from shapes and data pointers only (no
     tensor value is read, so packing never synchronizes with the device).
 
-    t: (B, n, n) int32, n = 2^log2_n with log2_n in 2..5, contiguous or
-    each block column-major (K1 reads either in place); ls /
-    bd_shift: a Python int (passed by value) or a contiguous int32 tensor
-    of 1 or B values; q: (B, n, n) int16 and rate: (B,) f32, contiguous.
-    lanes: K1's lanes per block, 8 or 1 (4 x 4 blocks only); None takes
-    k1_lanes(jobs). Jobs are ordered by block size,
-    largest first (stable), so the CTAs of the longest chains are issued
-    first; each job takes ceil(B / (32 / lanes)) one-warp CTAs. Jobs with
-    B = 0 take none and are left out. Raises ValueError on anything else,
-    and on more than K1_MAX_JOBS jobs."""
+    Each job and its outputs as quantize.fill_job takes them (K1 reads t
+    in place, row- or column-major blocks). lanes: K1's lanes per block,
+    8 or 1 (4 x 4 blocks only); None takes k1_lanes(jobs). Jobs are
+    ordered by block size, largest first (stable), so the CTAs of the
+    longest chains are issued first; each job takes ceil(B / (32 /
+    lanes)) one-warp CTAs. Jobs with B = 0 take none and are left out.
+    Raises ValueError on anything else, and on more than K1_MAX_JOBS
+    jobs."""
     if len(jobs) != len(outs):
         raise ValueError("pack_jobs: one (q, rate) per job")
     if len(jobs) > K1_MAX_JOBS:
@@ -188,47 +145,12 @@ def pack_jobs(jobs, outs, lanes=None):
     order = sorted(range(len(jobs)), key=lambda i: -jobs[i][3])
     n, cta = 0, 0
     for i in order:
-        t, ls, bd, lg = jobs[i]
-        q, rate = outs[i]
-        if lg not in LOG2_SIZES:
-            raise ValueError(f"pack_jobs: log2 size {lg} not in 2..5")
-        N = 1 << lg
-        if t.dim() != 3 or tuple(t.shape[1:]) != (N, N):
-            raise ValueError(f"pack_jobs: blocks of shape {tuple(t.shape)}, "
-                             f"want (B, {N}, {N})")
-        B = t.shape[0]
-        layout = _t_layout(t)
-        if t.dtype != torch.int32 or layout is None:
-            raise ValueError("pack_jobs: t must be int32, each block dense "
-                             "row- or column-major and the blocks packed")
-        if (q.dtype != torch.int16 or q.shape != t.shape
-                or not q.is_contiguous() or rate.dtype != torch.float32
-                or tuple(rate.shape) != (B,) or not rate.is_contiguous()):
-            raise ValueError("pack_jobs: outputs must be (B, n, n) int16 "
-                             "and (B,) f32, contiguous")
-        if B == 0:
+        if not fill_job(desc.job[n], jobs[i], outs[i]):
             continue
         j = desc.job[n]
-        j.t, j.q, j.rate = t.data_ptr(), q.data_ptr(), rate.data_ptr()
-        j.B, j.log2_n, j.cta_begin, j.t_transposed = B, lg, cta, layout
-        for name, v in (("ls", ls), ("bd", bd)):
-            if isinstance(v, torch.Tensor):
-                if (v.dtype != torch.int32 or v.dim() != 1
-                        or not v.is_contiguous() or v.numel() not in (1, B)
-                        or v.device != t.device):
-                    raise ValueError(
-                        f"pack_jobs: {name} must be a contiguous int32 "
-                        f"tensor of 1 or {B} values on {t.device}, got "
-                        f"{v.dtype} {tuple(v.shape)} on {v.device}")
-                setattr(j, name, v.data_ptr())
-                setattr(j, name + "_stride", int(v.numel() > 1))
-            elif isinstance(v, int):
-                setattr(j, name + "_val", v)
-            else:
-                raise ValueError(f"pack_jobs: {name} must be an int or a "
-                                 f"tensor, got {type(v).__name__}")
-        cta += -(-B // per_cta)
-        desc.max_log2_n = max(desc.max_log2_n, lg)
+        j.cta_begin = cta
+        cta += -(-j.B // per_cta)
+        desc.max_log2_n = max(desc.max_log2_n, j.log2_n)
         n += 1
     desc.n_jobs, desc.n_ctas = n, cta
     return desc

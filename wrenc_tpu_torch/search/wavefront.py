@@ -274,8 +274,7 @@ class WavefrontSearch:
                 seltabs=(f32(np.float32(self.lam * self.mode_bits_scale)),
                          f32(self._mode_bits), f32(po), f32(idx_bits),
                          f32(rem_bits)))
-            if tr:
-                ktr.order_table(dev)       # K1's coding orders, uploaded once
+            kq.order_table(dev)   # K1's / K2's coding orders, uploaded once
         return self._dev_args
 
     def _sizes(self):
