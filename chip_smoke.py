@@ -26,16 +26,38 @@ Run from the root of a checkout. Phases, each fatal on failure:
      wrenc_tpu_torch.encoder.Encoder + WavefrontSearch, default config and
      stage_a_trellis_rd=1, warm-up then timed, with the kernels' launch
      counters reset just before and read just after each timed encode;
-  5. a 2-frame CIF encode per config on the card equals the same encode
-     on the CPU byte for byte, and the port's decoder reproduces the
-     card's reconstruction; the same for the device commit engine on 2
-     frames at 96x64;
-  6. the device commit engine (commit_engine='device',
+  5. K1 and K2 against their plain versions at the device chroma stage
+     A's shapes (chroma sizes 4 / 8 / 16, cb and cr in one batch: 2*F*N
+     derived / SCIPU and 6*F*N CCLM blocks, the chroma QP's ls /
+     bd_shift) of four chunks: CIF 8 and 16 frames, 1080p 1 and 4
+     frames; through the launch helpers in both instantiations at 4 x 4
+     and through the wrappers with the search's device arguments; each
+     kernel's device time per launch in a CUDA graph beside its bound;
+  6. 1080p: 4 synthetic 1920x1088 frames at QP 32 on the default path
+     (native engine, device chroma), warm-up then timed with the counters
+     reset just before and read just after, decode == reconstruction;
+     one chunk's chroma stage A alone: its dispatch under the CUDA sync
+     debug mode "error" with the counters reset just before and read just
+     after (K2's launches checked against the chunk's shapes), those
+     launches replayed in a CUDA graph (K2's device time per chunk), the
+     PyTorch operators it dispatches; then the device engine in its
+     default configuration (device chroma), one 4-frame group, one
+     encode, its chroma stage A alone as above, and its scan alone (rank
+     steps, scan time);
+  7. a 2-frame CIF encode per config (both stage-A configurations and
+     chroma_stage_a='device') on the card equals the same encode on the
+     CPU byte for byte, and the port's decoder reproduces the card's
+     reconstruction; the same for the device commit engine on 2 frames at
+     96x64, with native and with its default device chroma, and for one
+     1920x1088 frame on the default path;
+  8. the device commit engine (commit_engine='device',
      chroma_stage_a='native'): 16 CIF frames at QP 32, warm-up then timed
      with the launch counters reset just before and read just after, K1
      launched from trellis_rate_batch once per wave with trellis jobs,
      decode == reconstruction, the native engine's bytes and PSNR beside
-     it; then the scan alone on those frames, its first segment under
+     it, and one more timed encode in the engine's default configuration
+     (device chroma) with its chroma stage A alone as in 6; then the scan
+     alone on those frames, its first segment under
      torch.cuda.set_sync_debug_mode("error") (no host-device sync inside
      the step loop), its steps and wall time; again under torch.profiler
      (the kernels' summed device time); again counting the PyTorch
@@ -80,6 +102,14 @@ LANES_SWEEP_B = (1024, 4096, 12288, 16384, 38016, 76032, 152064, 304128)
 SIZES = (4, 8, 16, 32)
 N_CANDS = 6                      # K + 2 stage-A candidates per block
 CIF = (352, 288)
+P1080 = (1920, 1088)
+# the chunks whose chroma stage-A shapes K1 / K2 are checked at: (name,
+# geometry, frames per chunk); the 16- and 4-frame ones are the device
+# engine's buckets
+CHROMA_CHUNKS = (("CIF 8 frames", CIF, 8),
+                 ("CIF 16 frames (device engine)", CIF, 16),
+                 ("1080p 1 frame", P1080, 1),
+                 ("1080p 4 frames (device engine)", P1080, 4))
 
 
 def log(*a):
@@ -374,7 +404,7 @@ def _time_ms(fn, reps, per=1):
 
 
 def _graph_ms(fn, n=20, reps=11):
-    """K1's device time per call of fn: n calls captured in a CUDA graph,
+    """The device time per call of fn: n calls captured in a CUDA graph,
     the graph replayed reps times between CUDA events; the median over
     the replays, divided by n (no host launch time inside)."""
     import torch
@@ -585,6 +615,114 @@ def phase_k2_lanes_sweep():
     return out
 
 
+def _chroma_jobs(size, F):
+    """The K1 / K2 launches of one chunk's device chroma stage A, as (cs,
+    B, launches): cb and cr go in one batch, the derived modes (at cs = 4
+    also the SCIPU variant) at B = 2 * F * N blocks and the three CCLM
+    candidates at 6 * F * N."""
+    W, H = size
+    out = []
+    for cs in (4, 8, 16):
+        N = (W // 2 // cs) * (H // 2 // cs)
+        out += [(cs, 2 * F * N, 2 if cs == 4 else 1), (cs, 6 * F * N, 1)]
+    return out
+
+
+def _chroma_case(log2, trellis):
+    """Quant parameters of the chroma QP of luma QP 32 (stage A's chroma
+    ls / bd_shift) with the luma QP's stage-A tables, as the search passes
+    them."""
+    from wrenc_tpu_torch.core.config import RateModelConfig
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.spec import quant
+    rm = RateModelConfig()
+    qpar = quant.derive_quant_params(quant.chroma_qp_from_luma(32), log2,
+                                     log2, dep_quant=True,
+                                     transform_skip=False)
+    return (qpar, kq.lam_dq_table(rm, 32, trellis=trellis),
+            kq.lv_table_device(rm, True, trellis))
+
+
+def _chroma_bound(P, B, kname):
+    """(bytes ms, operations ms) of one launch at B blocks of P positions:
+    int32 coefficients in, int16 levels and an f32 rate out."""
+    return ((6 * P * B + 4 * B) / HBM_BYTES_S * 1e3,
+            OPS_PER_POS[kname] * P * B / OPS_S * 1e3)
+
+
+def phase_chroma_kernels(errs):
+    """K1 and K2 against their plain twins, exactly, at the chroma shapes
+    of CHROMA_CHUNKS (DCT coefficients of residual noise): through each
+    launch helper in both instantiations at 4 x 4 (each lanes rule crosses
+    between those shapes), and through the wrapper with the arguments the
+    search uploads (ls / bd_shift as (1,) tensors, the tables on the
+    card) at the rule's lanes; then each kernel's device time per launch
+    in a CUDA graph per instantiation beside its bound: K2 on the default
+    path, K1 under stage_a_trellis_rd=1."""
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import transforms
+    from wrenc_tpu_torch.kernels import trellis as ktr
+    rng = np.random.default_rng(29)
+    out, cases = {}, 0
+    for name, size, F in CHROMA_CHUNKS:
+        out[name] = []
+        for cs, B, _ in _chroma_jobs(size, F):
+            log2 = cs.bit_length() - 1
+            P = cs * cs
+            res = rng.integers(-24, 25, (B, cs, cs)).astype(np.int32)
+            t = transforms.forward_impl(torch.as_tensor(res, device="cuda"))
+            lanes_list = (1, 8) if log2 == 2 else (8,)
+            row = {"cs": cs, "B": B}
+            for kname, (wrap, plain, tr) in _kernels().items():
+                qpar, lam, lv = _chroma_case(log2, tr)
+                want = plain(t, qpar.ls, qpar.bd_shift, lam, lv, log2)
+                ls, bd = (torch.tensor([v], dtype=torch.int32, device="cuda")
+                          for v in (qpar.ls, qpar.bd_shift))
+                lam_d = kq.table(lam, torch.int32, "cuda")
+                lv_d = kq.table(lv, torch.float32, "cuda")
+                if tr:
+                    def launch(lanes):
+                        return ktr._launch_k1([(t, ls, bd, log2)], lam_d,
+                                              lv_d, lanes)[0]
+                    rule = ktr.k1_lanes([(t, ls, bd, log2)])
+                else:
+                    def launch(lanes):
+                        return kq._launch_k2(t, ls, bd, lam_d, lv_d, log2,
+                                             lanes)
+                    rule = kq.k2_lanes(log2, B)
+                got = {lanes: launch(lanes) for lanes in lanes_list}
+                got["wrapper"] = wrap(t, ls, bd, lam_d, lv_d, log2)
+                torch.cuda.synchronize()
+                for how, g in got.items():
+                    e = _err(g, want)
+                    if e != 0:
+                        raise AssertionError(
+                            f"{kname} ({how}) != plain at the chroma shape "
+                            f"cs={cs} B={B} ({name}): {e}")
+                    errs[kname] = max(errs[kname], e)
+                    cases += 1
+                bytes_ms, ops_ms = _chroma_bound(P, B, kname)
+                row[kname] = {
+                    "device_ms": {lanes: _graph_ms(lambda: launch(lanes))
+                                  for lanes in lanes_list},
+                    "lanes": rule, "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": ("operations" if ops_ms >= bytes_ms
+                                 else "bytes")}
+            out[name].append(row)
+            k2, k1 = row["dq_greedy"], row["dq_trellis"]
+            log(f"chroma {name}: cs={cs:2d} B={B:6d}: K1 and K2 equal to "
+                f"plain (launch helpers and wrappers); device ms per launch "
+                f"by lanes K2 {json.dumps(k2['device_ms'])} (rule "
+                f"{k2['lanes']}), K1 {json.dumps(k1['device_ms'])} (rule "
+                f"{k1['lanes']}); bound K2 {k2['bound_ms']:.4f} ms, K1 "
+                f"{k1['bound_ms']:.4f} ms")
+    log(f"K1 and K2: equal to their plain versions in {cases} chroma-shape "
+        f"cases")
+    return out
+
+
 def phase_fma():
     import numpy as np
     import torch
@@ -692,29 +830,230 @@ def phase_card_vs_cpu():
     from wrenc_tpu_torch.decoder import decode_annexb
     from wrenc_tpu_torch.encoder import Encoder
     from wrenc_tpu_torch.search import WavefrontSearch
-    cases = [(f"stage_a_trellis_rd={tr}", _cfg(tr), {}, CIF) for tr in (0, 1)]
-    cases.append(("commit_engine=device", EncoderConfig(
-        width=96, height=64, qp=32), DEVICE_ENGINE, (96, 64)))
-    for name, cfg, kw, size in cases:
-        frames = synth_frames(2, *size, seed=5)
-        s_gpu, r_gpu = Encoder(cfg, search=WavefrontSearch(
-            cfg, **kw)).encode(frames)
+    # (name, config, search arguments, frames, device chroma expected)
+    cases = [(f"stage_a_trellis_rd={tr}", _cfg(tr), {}, 2, False)
+             for tr in (0, 1)]
+    cases.append(("chroma_stage_a=device", _cfg(0),
+                  {"chroma_stage_a": "device"}, 2, True))
+    small = EncoderConfig(width=96, height=64, qp=32)
+    cases.append(("commit_engine=device", small, DEVICE_ENGINE, 2, False))
+    cases.append(("commit_engine=device, default chroma", small,
+                  {"commit_engine": "device"}, 2, True))
+    cases.append(("default", EncoderConfig(width=P1080[0], height=P1080[1],
+                                           qp=32), {}, 1, True))
+    out = {}
+    for name, cfg, kw, n, chroma_dev in cases:
+        size = (cfg.width, cfg.height)
+        frames = synth_frames(n, *size, seed=5)
+        search = WavefrontSearch(cfg, **kw)
+        if search._chroma_device != chroma_dev:
+            raise AssertionError(f"{name}: device chroma "
+                                 f"{search._chroma_device}")
+        s_gpu, r_gpu = Encoder(cfg, search=search).encode(frames)
         t0 = time.perf_counter()
         s_cpu, _ = Encoder(cfg, search=WavefrontSearch(
             cfg, device="cpu", **kw)).encode(frames)
         t_cpu = time.perf_counter() - t0
         if s_gpu != s_cpu:
-            raise AssertionError(f"{name}: card bytes != CPU bytes")
+            raise AssertionError(f"{name} {size}: card bytes != CPU bytes")
         dec = decode_annexb(s_gpu)
         if not all((dec[k][c] == r_gpu[k][c]).all()
-                   for k in range(2) for c in range(3)):
-            raise AssertionError(f"{name}: decode != reconstruction")
-        log(f"2-frame {size[0]}x{size[1]} encode, {name}: card bytes == "
+                   for k in range(n) for c in range(3)):
+            raise AssertionError(f"{name} {size}: decode != reconstruction")
+        out[f"{size[0]}x{size[1]} {name}"] = {"bytes": len(s_gpu),
+                                               "cpu_seconds": t_cpu}
+        log(f"{n}-frame {size[0]}x{size[1]} encode, {name}: card bytes == "
             f"CPU bytes ({len(s_gpu)} bytes; CPU encode {t_cpu:.1f} s), "
             f"decode == reconstruction")
+    return out
 
 
 DEVICE_ENGINE = {"commit_engine": "device", "chroma_stage_a": "native"}
+
+
+def _decodes(stream, recons, name):
+    from wrenc_tpu_torch.decoder import decode_annexb
+    dec = decode_annexb(stream)
+    if len(dec) != len(recons) or not all(
+            (dec[k][c] == recons[k][c]).all()
+            for k in range(len(recons)) for c in range(3)):
+        raise AssertionError(f"{name}: decode != reconstruction")
+
+
+def _psnr_y(recons, frames):
+    import numpy as np
+    mse = np.mean([(r[0].astype(np.float64) - f[0]) ** 2
+                   for r, f in zip(recons, frames)])
+    return 10 * np.log10(255 ** 2 / mse)
+
+
+def _timed_encode(enc, frames, need):
+    """One encode between a reset of the launch counters and a read of
+    them, ending in a synchronize; fails when a kernel in `need` was not
+    launched."""
+    import torch
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream, recons = enc.encode(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    for k in need:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} never launched")
+    return stream, recons, dt, launches
+
+
+def _chroma_chunk(search, frames, name):
+    """One chunk's device chroma stage A alone, from the luma modes its
+    decide saw. The dispatch runs under the CUDA sync debug mode "error"
+    (any blocking call raises) with the launch counters set to 0 just
+    before it and read just after: K2's count must equal the launches its
+    launch helper saw and _chroma_jobs' count for the chunk. Then those
+    very launches (their arguments kept) replayed in a CUDA graph: K2's
+    device time per chunk beside its bound; a second dispatch counting
+    the PyTorch operators; a third with its one fetch."""
+    import torch
+    from wrenc_tpu_torch.kernels import quantize as kq
+    seen = {}
+    prefill = search._prefill_chroma_device
+
+    def spy(cache, luma_mode_b, sizes, F, dev_planes):
+        seen["args"] = (luma_mode_b, sizes, dev_planes)
+        return prefill(cache, luma_mode_b, sizes, F, dev_planes)
+    search._prefill_chroma_device = spy
+    try:
+        search._decide_chunk(search._dispatch_stage_a(frames))
+    finally:
+        del search._prefill_chroma_device
+    lmb, sizes, devp = seen["args"]
+    Fp = int(devp[0].shape[0])
+    launch, recorded = kq._launch_k2, []
+
+    def record(*a):
+        recorded.append(a)
+        return launch(*a)
+    counters = _counters()
+    torch.cuda.synchronize()
+    kq._launch_k2 = record
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t1 = time.perf_counter()
+        search._dispatch_chroma(lmb, sizes, devp)
+        t2 = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        kq._launch_k2 = launch
+    launches = {k: f.launches for k, f in counters.items()}
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    want = sum(n for _, _, n in _chroma_jobs(
+        (search.cfg.width, search.cfg.height), Fp))
+    if not launches["dq_greedy"] == len(recorded) == want or \
+            launches["dq_trellis"] or launches["dq_trellis_batch"]:
+        raise AssertionError(f"{name}: chroma stage A launched {launches}, "
+                             f"K2's helper saw {len(recorded)}, want {want}")
+    shapes = [(a[0].shape[1], a[0].shape[0],
+               kq.k2_lanes(a[5], a[0].shape[0])) for a in recorded]
+    device_ms = _graph_ms(lambda: [launch(*a) for a in recorded], n=5)
+    bounds = [_chroma_bound(s * s, B, "dq_greedy") for s, B, _ in shapes]
+    with _OpCount() as oc:
+        search._dispatch_chroma(lmb, sizes, devp)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    search._prefill_chroma_device({}, lmb, sizes, len(frames), devp)
+    t5 = time.perf_counter()
+    ops = dict(oc.counts.most_common())
+    out = {"frames": Fp, "dispatch_ms": (t2 - t1) * 1e3,
+           "dispatch_to_idle_ms": (t3 - t1) * 1e3,
+           "with_fetch_ms": (t5 - t4) * 1e3, "launches": launches,
+           "k2_shapes": shapes, "k2_device_ms": device_ms,
+           "k2_bound_ms": sum(max(b) for b in bounds),
+           "k2_bytes_ms": sum(b[0] for b in bounds),
+           "ops": sum(ops.values()), "top_ops": dict(list(ops.items())[:12])}
+    log(f"  chroma stage A, one {Fp}-frame chunk alone ({name}): dispatch "
+        f"{out['dispatch_ms']:.1f} ms (under the sync debug mode 'error'), "
+        f"until the device is idle {out['dispatch_to_idle_ms']:.1f} ms, "
+        f"with the fetch {out['with_fetch_ms']:.1f} ms; launches {launches}"
+        f" (cs, B, lanes) {shapes}; K2 {device_ms:.4f} ms device time per "
+        f"chunk (those launches in a CUDA graph), bound "
+        f"{out['k2_bound_ms']:.4f} ms; {out['ops']} PyTorch operators, most "
+        f"frequent {json.dumps(out['top_ops'])}")
+    return out
+
+
+def phase_1080p():
+    """4 synthetic 1920x1088 frames at QP 32. The default path (native
+    engine, device chroma: 1-frame chunks), warm-up then timed; one
+    chunk's chroma stage A alone; then the device engine in its default
+    configuration, one 4-frame group, one encode; its chroma stage A
+    alone and its scan alone."""
+    from wrenc_tpu_torch.core.config import EncoderConfig
+    from wrenc_tpu_torch.encoder import Encoder
+    from wrenc_tpu_torch.search import WavefrontSearch
+    frames = synth_frames(4, *P1080, seed=2)
+    cfg = EncoderConfig(width=P1080[0], height=P1080[1], qp=32)
+    search = WavefrontSearch(cfg)
+    if not search._chroma_device or search._device_commit:
+        raise AssertionError("1080p default: want device chroma, native "
+                             "engine")
+    enc = Encoder(cfg, search=search)
+    t0 = time.perf_counter()
+    enc.encode(frames)                                     # warm-up
+    warm = time.perf_counter() - t0
+    stream, recons, dt, launches = _timed_encode(enc, frames, ["dq_greedy"])
+    _decodes(stream, recons, "1080p default")
+    n_chunks = -(-len(frames) // search._buckets()[-1])
+    phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
+    out = {"fps": len(frames) / dt, "seconds": dt, "warmup_seconds": warm,
+           "bytes": len(stream), "psnr_y": _psnr_y(recons, frames),
+           "launches": launches, "chunks": n_chunks,
+           "launches_per_chunk": {k: v / n_chunks
+                                  for k, v in launches.items()},
+           "phase_times": phases}
+    log(f"1080p default: {len(frames)} frames QP 32 in {dt:.3f} s = "
+        f"{out['fps']:.3f} fps (warm-up {warm:.1f} s), {len(stream)} bytes,"
+        f" PSNR-Y {out['psnr_y']:.2f} dB, {n_chunks} chunks, launches "
+        f"{launches}; decode == reconstruction")
+    log(f"  phase_times (s): {json.dumps(phases)}")
+    out["chroma_one_chunk"] = _chroma_chunk(search, frames[:1],
+                                            "1080p default")
+
+    # the device engine in its default configuration: one 4-frame group
+    dsearch = WavefrontSearch(cfg, commit_engine="device")
+    if not (dsearch._device_commit and dsearch._chroma_device):
+        raise AssertionError("1080p device engine: want device chroma")
+    denc = Encoder(cfg, search=dsearch)
+    dstream, drecons, ddt, dl = _timed_encode(
+        denc, frames, ["dq_greedy", "dq_trellis_batch"])
+    _decodes(dstream, drecons, "1080p device engine")
+    dphases = {k: round(v, 4) for k, v in denc.phase_times.items()}
+    d = out["device_engine"] = {
+        "fps": len(frames) / ddt, "seconds": ddt, "bytes": len(dstream),
+        "psnr_y": _psnr_y(drecons, frames), "launches": dl,
+        "phase_times": dphases}
+    log(f"1080p device engine (default chroma): {len(frames)} frames in one "
+        f"group, {ddt:.3f} s = {d['fps']:.3f} fps, {len(dstream)} bytes "
+        f"(native engine {len(stream)}), PSNR-Y {d['psnr_y']:.2f} dB, "
+        f"launches {dl}; decode == reconstruction")
+    log(f"  phase_times (s): {json.dumps(dphases)}")
+    d["chroma_one_chunk"] = _chroma_chunk(dsearch, frames,
+                                          "1080p device engine")
+    sc, rec_scan = _scan(dsearch, frames)
+    if not all((rec_scan[k][c] == drecons[k][c]).all()
+               for k in range(len(frames)) for c in range(3)):
+        raise AssertionError("1080p device engine: scan alone != encode")
+    d["scan"] = sc
+    log(f"  scan alone: {sc['steps']} rank steps in {sc['seconds']:.3f} s = "
+        f"{sc['seconds'] / sc['steps'] * 1e3:.2f} ms per step (schedule "
+        f"{sc['schedule_seconds']:.3f} s, set-up {sc['setup_seconds']:.3f} "
+        f"s); its reconstruction equals the encode's")
+    return out
 
 
 def _counters():
@@ -865,6 +1204,26 @@ def phase_device_commit(native_report):
         f"{native_report['psnr_y']:.2f} dB")
     log(f"  phase_times (s): {json.dumps(phases)}")
 
+    # the engine's default configuration: device chroma
+    enc_dc = Encoder(cfg, search=WavefrontSearch(cfg,
+                                                 commit_engine="device"))
+    if not enc_dc.search._chroma_device:
+        raise AssertionError("device engine: default chroma is not device")
+    s_dc, r_dc, dt_dc, l_dc = _timed_encode(
+        enc_dc, frames, ["dq_greedy", "dq_trellis_batch"])
+    _decodes(s_dc, r_dc, "device engine, default chroma")
+    default_chroma = {
+        "fps": len(frames) / dt_dc, "seconds": dt_dc, "bytes": len(s_dc),
+        "psnr_y": _psnr_y(r_dc, frames), "launches": l_dc,
+        "phase_times": {k: round(v, 4)
+                        for k, v in enc_dc.phase_times.items()}}
+    log(f"device engine, default (device) chroma: {len(frames)} CIF frames "
+        f"in {dt_dc:.3f} s = {len(frames) / dt_dc:.3f} fps, {len(s_dc)} "
+        f"bytes (native chroma {len(stream)}), launches {l_dc}; "
+        f"phase_times {json.dumps(default_chroma['phase_times'])}")
+    default_chroma["chroma_one_chunk"] = _chroma_chunk(
+        enc_dc.search, frames, "CIF device engine")
+
     # the scan alone: first segment under the sync debug mode, then timed
     search = enc.search
     sc, rec_scan = _scan(search, frames, debug_first=True)
@@ -924,7 +1283,7 @@ def phase_device_commit(native_report):
         f"host+device time (CUDA events around each launch)")
     return {"fps": len(frames) / dt, "seconds": dt, "warmup_seconds": warm,
             "bytes": len(stream), "psnr_y": psnr, "launches": launches,
-            "phase_times": phases,
+            "phase_times": phases, "default_chroma": default_chroma,
             "native_engine": {k: native_report[k] for k in ("bytes",
                                                             "psnr_y")},
             "scan": dict(sc, k1_launches=len(k1_ms),
@@ -1046,9 +1405,11 @@ def main():
     rows = phase_kernel_timing(errs)
     sweep = phase_k1_lanes_sweep()
     k2_sweep = phase_k2_lanes_sweep()
+    chroma = phase_chroma_kernels(errs)
     phase_fma()
     main_path = phase_main_path()
-    phase_card_vs_cpu()
+    p1080 = phase_1080p()
+    card_cpu = phase_card_vs_cpu()
     dev = phase_device_commit(main_path["default"])
     batch = phase_batch_check(dev)
 
@@ -1058,6 +1419,21 @@ def main():
                  "dq_greedy": "default"}
     per_path = {p: main_path[p]["launches"] for p in main_path}
     per_path["commit_engine=device"] = dev["launches"]
+    per_path["commit_engine=device, device chroma"] = \
+        dev["default_chroma"]["launches"]
+    per_path["1080p default"] = p1080["launches"]
+    per_path["1080p commit_engine=device"] = \
+        p1080["device_engine"]["launches"]
+    # one chunk's chroma stage A alone, as measured (launches from the
+    # counters, K2's device time of those launches in a CUDA graph)
+    chroma_chunks = {
+        "CIF 16 frames (device engine)":
+            dev["default_chroma"]["chroma_one_chunk"],
+        "1080p 1 frame": p1080["chroma_one_chunk"],
+        "1080p 4 frames (device engine)":
+            p1080["device_engine"]["chroma_one_chunk"]}
+    for n, c in chroma_chunks.items():
+        per_path[f"chroma stage A alone, {n}"] = c["launches"]
     kernels = []
     for name in ("dq_trellis", "dq_greedy"):
         r = rows[name]
@@ -1078,10 +1454,11 @@ def main():
         kernels[-1].update(
             sm_clock_mhz=r["sm_clock_mhz"],
             device_ms_per_chunk=sum(v["device_ms"][v["lanes"]]
-                                    for v in r["per_size"].values()))
+                                    for v in r["per_size"].values()),
+            chroma_per_launch={n: [dict(cs=x["cs"], B=x["B"], **x[name])
+                                   for x in v] for n, v in chroma.items()})
         if name == "dq_trellis":
-            kernels[-1].update(ptxas=build["ptxas"],
-                               lanes_sweep_4x4_ms=sweep)
+            kernels[-1].update(ptxas=build["ptxas"], lanes_sweep_4x4_ms=sweep)
         else:
             kernels[-1].update(
                 per_size_16_frames=r["per_size_16_frames"],
@@ -1089,7 +1466,13 @@ def main():
                     v["device_ms"][v["lanes"]]
                     for v in r["per_size_16_frames"].values()),
                 lanes_sweep_ms=k2_sweep, ops_one_call=k2_ops,
-                blocks_smem=build["k2_blocks_smem"])
+                blocks_smem=build["k2_blocks_smem"],
+                chroma_per_chunk={
+                    n: {"launches": c["launches"]["dq_greedy"],
+                        "device_ms": c["k2_device_ms"],
+                        "bound_ms": c["k2_bound_ms"],
+                        "bytes_ms": c["k2_bytes_ms"]}
+                    for n, c in chroma_chunks.items()})
     # K1 on the device commit path: per launch (one per wave), the mean
     # over the scan's launches (device time traced by torch.profiler
     # inside the scan; bound and plain time from each launch's jobs).
@@ -1118,6 +1501,8 @@ def main():
         "per_size": batch["per_size"]})
     dev = {k: v for k, v in dev.items() if not k.startswith("k1_")}
     log(f"main path: {json.dumps(main_path)}")
+    log(f"1080p: {json.dumps(p1080)}")
+    log(f"card vs CPU: {json.dumps(card_cpu)}")
     log(f"device engine: {json.dumps(dev)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -28,6 +28,8 @@ from wrenc_tpu.search import WavefrontSearch as JaxSearch
 from wrenc_tpu.search import device_commit as jdc
 from wrenc_tpu.spec import quant
 
+from wrenc_tpu_torch.conformance import (
+    decode_annexb_independent as port_independent)
 from wrenc_tpu_torch.core import config as tconfig
 from wrenc_tpu_torch.decoder import decode_annexb as port_decode
 from wrenc_tpu_torch.encoder import Encoder
@@ -273,8 +275,8 @@ def test_region_sum_order():
 def test_device_engine_bytes_match_jax(w, h, qp, margin, n, monkeypatch):
     """Byte-identical to the JAX device engine in the same configuration;
     margin 10 makes every internal split a refine node, so phantoms run
-    and some merged leaves win. Both decoders reproduce the port's
-    reconstruction."""
+    and some merged leaves win. The repo's decoders and the port's two
+    reproduce the port's reconstruction."""
     cfg = EncoderConfig(width=w, height=h, qp=qp)
     if margin is not None:
         cfg.rate_model.split_refine_margin = margin
@@ -292,7 +294,7 @@ def test_device_engine_bytes_match_jax(w, h, qp, margin, n, monkeypatch):
         for c in range(3):
             assert (rec[k][c] == want_rec[k][c]).all()
     for decoded in (decode_annexb(got), port_decode(got),
-                    decode_annexb_independent(got)):
+                    decode_annexb_independent(got), port_independent(got)):
         assert len(decoded) == n
         for k in range(n):
             for c in range(3):
@@ -353,22 +355,26 @@ def test_device_engine_commit_groups(monkeypatch):
 
 
 @pytest.mark.parametrize("how", ["arg", "env"])
-def test_device_engine_needs_native_chroma(how, monkeypatch):
-    cfg = tconfig.EncoderConfig(width=64, height=64)
+def test_device_engine_defaults_to_device_chroma(how, monkeypatch):
+    """The device engine, asked for by argument or environment, takes the
+    device chroma stage A by default (as the JAX search does) and
+    encodes; both of the port's decoders reproduce its reconstruction.
+    WRENC_CHROMA_STAGE_A=native still selects the native chroma."""
+    cfg = tconfig.EncoderConfig(width=64, height=64, qp=31)
+    monkeypatch.delenv("WRENC_CHROMA_STAGE_A", raising=False)
     if how == "env":
         monkeypatch.setenv("WRENC_COMMIT_ENGINE", "device")
         kw = {}
     else:
+        monkeypatch.delenv("WRENC_COMMIT_ENGINE", raising=False)
         kw = {"commit_engine": "device"}
-    with pytest.raises(NotImplementedError, match="item 1"):
-        WavefrontSearch(cfg, device='cpu', **kw)
+    search = WavefrontSearch(cfg, device='cpu', **kw)
+    assert search._device_commit and search._chroma_device
+    frames = [synth_frame(64, 64, seed=90)]
+    stream, rec = Encoder(cfg, search=search).encode(frames)
+    for decoded in (port_decode(stream), port_independent(stream)):
+        for c in range(3):
+            assert (np.asarray(decoded[0][c]) == rec[0][c]).all()
     monkeypatch.setenv("WRENC_CHROMA_STAGE_A", "native")
-    assert WavefrontSearch(cfg, device='cpu', **kw)._device_commit
-
-
-def test_device_engine_refuses_switched_off_rate_model():
-    cfg = tconfig.EncoderConfig(width=64, height=64)
-    cfg.rate_model.commit_rank_trellis = 0.0
-    with pytest.raises(ValueError, match="commit_rank_trellis"):
-        WavefrontSearch(cfg, commit_engine='device', chroma_stage_a='native',
-                        device='cpu')
+    search = WavefrontSearch(cfg, device='cpu', **kw)
+    assert search._device_commit and not search._chroma_device

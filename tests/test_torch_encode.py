@@ -1,6 +1,6 @@
 """End to end on the CPU: the port's encode is byte-identical to the JAX
-WavefrontSearch encode, and both of the repo's decoders reproduce the
-port's reconstruction."""
+WavefrontSearch encode, and both of the repo's decoders, and the port's
+own two, reproduce the port's reconstruction."""
 import dataclasses
 
 import numpy as np
@@ -13,6 +13,8 @@ from wrenc_tpu.decoder import decode_annexb
 from wrenc_tpu.encoder import Encoder as JaxEncoder
 from wrenc_tpu.search import WavefrontSearch as JaxSearch
 
+from wrenc_tpu_torch.conformance import (
+    decode_annexb_independent as port_independent)
 from wrenc_tpu_torch.core import config as tconfig
 from wrenc_tpu_torch.decoder import decode_annexb as port_decode
 from wrenc_tpu_torch.encoder import Encoder
@@ -68,7 +70,8 @@ def test_port_stream_decodes_to_reconstruction(trellis):
     frames = [synth_frame(64, 64, seed=70 + k) for k in range(2)]
     stream, recons = _port_encode(cfg, frames)
     for decoded in (decode_annexb(stream), port_decode(stream),
-                    decode_annexb_independent(stream)):
+                    decode_annexb_independent(stream),
+                    port_independent(stream)):
         assert len(decoded) == 2
         for k in range(2):
             for c in range(3):

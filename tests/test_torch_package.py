@@ -80,37 +80,22 @@ def test_search_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("case", [
-    "mesh", "device_commit", "qp_delta", "host_select", "device_chroma",
-    "large_frame", "greedy_commit", "non_rd_commit"])
+    "mesh", "qp_delta", "host_select", "greedy_commit", "non_rd_commit"])
 def test_unported_branches_raise(case, monkeypatch):
     cfg = EncoderConfig(width=64, height=64)
     kw = {"device": "cpu"}
     if case == "mesh":
         kw["mesh"] = object()
-    elif case == "device_commit":
-        kw["commit_engine"] = "device"
     elif case == "qp_delta":
         cfg.qp_delta_pattern = (0, 2)
     elif case == "host_select":
         monkeypatch.setenv("WRENC_STAGE_A_SELECT", "host")
-    elif case == "device_chroma":
-        kw["chroma_stage_a"] = "device"
     elif case == "greedy_commit":
         kw["trellis_commit"] = False
-    elif case == "non_rd_commit":
-        kw["rd_commit"] = False
     else:
-        cfg = EncoderConfig(width=1024, height=512)
+        kw["rd_commit"] = False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         WavefrontSearch(cfg, **kw)
-
-
-def test_cli_scalar_search_raises():
-    from wrenc_tpu_torch.tools import encode
-    with pytest.raises(NotImplementedError):
-        encode.main(["-i", "x.yuv", "-o", "x.vvc", "--input-size", "64x64",
-                     "--output-size", "64x64", "--num-pictures", "1",
-                     "--search", "scalar", "--device", "cpu"])
 
 
 def test_native_build_failure_raises(tmp_path, monkeypatch):

@@ -3,7 +3,8 @@
 Produces Annex-B VVC streams (VPS/SPS/PPS, then per picture PH + one
 I-slice), mirroring the reference's main loop (main.rs:117-403). A copy
 of wrenc_tpu/encoder.py whose default search is this package's
-WavefrontSearch (on the card): the port has no scalar search.
+WavefrontSearch (on the card); the scalar search (spec/encoder.py, host
+only) runs when a caller passes it.
 """
 import numpy as np
 

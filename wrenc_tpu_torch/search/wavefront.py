@@ -10,16 +10,21 @@ RD chain (DCT-II, greedy dep-quant scan = CUDA kernel K2, or the trellis
 the on-device MPM-Jacobi winner selection and ranking. Dispatch does not
 synchronize, so chunk k+1's device work runs under chunk k's host passes.
 
-Stage A, chroma, and stage B — on the host, in the native C++ library:
-chroma candidate RD, the bottom-up QT decision, tree assembly, and the
-RD commit against the true reconstruction in a worker thread. Under
-`commit_engine='device'` the commit runs on the device instead
-(search/device_commit.py), from planes uploaded once per chunk.
+Stage A, chroma — on the device (`fused_chroma_stage_a`: derived-mode,
+SCIPU and CCLM candidate RD of every chroma size through the same RD
+chain, one fetch per chunk) by default at >= 0.5 Mpx and under the device
+commit engine; below that, in the native C++ library. Env
+WRENC_CHROMA_STAGE_A or `chroma_stage_a` picks either.
+
+Stage B — on the host, in the native C++ library: the bottom-up QT
+decision, tree assembly, and the RD commit against the true
+reconstruction in a worker thread. Under `commit_engine='device'` the
+commit runs on the device instead (search/device_commit.py), from planes
+uploaded once per chunk.
 
 Paths of the JAX module outside this slice (the greedy and non-RD
-commits, the sharded mesh, per-QG QP deltas, host-side luma selection,
-device chroma stage A, and so the device engine's default chroma) raise
-NotImplementedError.
+commits, the sharded mesh, per-QG QP deltas and host-side luma
+selection) raise NotImplementedError.
 """
 import functools
 import os
@@ -59,32 +64,30 @@ class WavefrontSearch:
         'cuda' (raises when no card is present). The other options are as
         in the JAX package: commit_engine 'native' (the threaded C++ RD
         tree commit, default; env WRENC_COMMIT_ENGINE) or 'device' (the
-        rank wavefront of search/device_commit.py, which needs
-        chroma_stage_a='native' or WRENC_CHROMA_STAGE_A=native). Only the
-        trellis RD commit on a single device is ported."""
+        rank wavefront of search/device_commit.py; it runs only with
+        dep-quant and the rate model's commit_rank_full,
+        commit_rank_trellis and commit_chroma_redecide on, else the
+        native engine runs); chroma_stage_a 'device' or 'native' (env
+        WRENC_CHROMA_STAGE_A; default 'device' under the device engine or
+        at >= 0.5 Mpx). Only the trellis RD commit on a single device is
+        ported."""
         cfg.validate()
         if not (trellis_commit and rd_commit):
             _not_ported("the greedy / non-RD commit (trellis_commit=False, "
                         "rd_commit=False)", 2)
         if mesh is not None:
             _not_ported("the sharded stage A (mesh=)", 5)
-        commit_engine = commit_engine or os.environ.get(
+        self.commit_engine = commit_engine or os.environ.get(
             'WRENC_COMMIT_ENGINE', 'native')
-        if commit_engine not in ('native', 'device'):
-            raise ValueError(f"commit_engine={commit_engine!r}: want "
+        if self.commit_engine not in ('native', 'device'):
+            raise ValueError(f"commit_engine={self.commit_engine!r}: want "
                              "'native' or 'device'")
-        self._device_commit = commit_engine == 'device'
         rm = cfg.rate_model
-        if self._device_commit and not (
-                cfg.dep_quant_enabled
-                and getattr(rm, 'commit_rank_full', 0)
-                and getattr(rm, 'commit_rank_trellis', 0)
-                and getattr(rm, 'commit_chroma_redecide', 0)):
-            raise ValueError(
-                "commit_engine='device' needs dep_quant_enabled and the "
-                "rate model's commit_rank_full, commit_rank_trellis and "
-                "commit_chroma_redecide (the JAX package runs the native "
-                "engine otherwise): pass commit_engine='native'")
+        self._device_commit = bool(
+            self.commit_engine == 'device' and cfg.dep_quant_enabled
+            and getattr(rm, 'commit_rank_full', 0)
+            and getattr(rm, 'commit_rank_trellis', 0)
+            and getattr(rm, 'commit_chroma_redecide', 0))
         if tuple(getattr(cfg, 'qp_delta_pattern', ()) or ()):
             _not_ported("qp_delta_pattern (per-QG QP)", 2)
         if os.environ.get('WRENC_STAGE_A_SELECT', 'device') != 'device':
@@ -92,11 +95,8 @@ class WavefrontSearch:
         auto_chroma = ('device' if (self._device_commit or
                                     cfg.width * cfg.height >= 1 << 19)
                        else 'native')
-        if (chroma_stage_a or os.environ.get(
-                'WRENC_CHROMA_STAGE_A', auto_chroma)) == 'device':
-            _not_ported("device chroma stage A (the default at >= 0.5 Mpx "
-                        "and under commit_engine='device'; pass "
-                        "chroma_stage_a='native')", 1)
+        self._chroma_device = (chroma_stage_a or os.environ.get(
+            'WRENC_CHROMA_STAGE_A', auto_chroma)) == 'device'
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rm = cfg.rate_model
@@ -274,8 +274,27 @@ class WavefrontSearch:
                 seltabs=(f32(np.float32(self.lam * self.mode_bits_scale)),
                          f32(self._mode_bits), f32(po), f32(idx_bits),
                          f32(rem_bits)))
+            if self._chroma_device:
+                # the chroma QP's ls / bd_shift per chroma size (4, 8, 16),
+                # the CCLM mode bits and the chroma mode matrices
+                rm, dep = self.rm, cfg.dep_quant_enabled
+                co = rm.pick('cclm_offset', dep, True)
+                cio = rm.pick('cclm_mode_idx_offset', dep, True)
+                self._dev_args.update(
+                    ls_c=tuple(i32(self.qpar[(1, lg)].ls)
+                               for lg in (2, 3, 4)),
+                    bd_c=tuple(i32(self.qpar[(1, lg)].bd_shift)
+                               for lg in (2, 3, 4)),
+                    cclm_bits=f32([co + (i + cio) ** rm.cclm_pow
+                                   for i in range(3)]),
+                    mats_c={cs: intra_pred.mats_device_f32(cs, 1, dev)
+                            for cs in self._chroma_sizes()})
             kq.order_table(dev)   # K1's / K2's coding orders, uploaded once
         return self._dev_args
+
+    def _chroma_sizes(self):
+        """Chroma block sizes of the single-tree leaves (QT sizes >= 8)."""
+        return tuple(sorted(s // 2 for s in self._sizes() if s >= 8))
 
     def _sizes(self):
         cfg = self.cfg
@@ -285,8 +304,9 @@ class WavefrontSearch:
     def _dispatch_stage_a(self, frames):
         """Dispatch the fused luma stage A for one chunk; does NOT block.
         Returns (batch, sizes, device results, device planes): the planes
-        are (y, cb, cr) uint8 (F', H*W / H*W/4) for the device commit
-        engine, which shares the upload, and None for the native one."""
+        are (y, cb, cr) uint8 (F', H*W / H*W/4) for the device chroma
+        stage A and the device commit engine, which share the upload, and
+        None when neither runs."""
         cfg = self.cfg
         batch = [[np.asarray(p, dtype=np.int32) for p in planes]
                  for planes in frames]
@@ -294,25 +314,27 @@ class WavefrontSearch:
         Fpad = self._bucket(F)
         padded = batch + [batch[-1]] * (Fpad - F) if Fpad > F else batch
         sizes = self._sizes()
-        args = self._stage_a_args()
+        a = self._stage_a_args()
         t0 = time.perf_counter()
         planes = self._upload([b[0] for b in padded])
         dev_planes = None
-        if self._device_commit:
+        if self._device_commit or self._chroma_device:
             dev_planes = (planes.reshape(len(padded), -1),
                           self._upload([b[1] for b in padded]).reshape(
                               len(padded), -1),
                           self._upload([b[2] for b in padded]).reshape(
                               len(padded), -1))
-        res = fused_luma_stage_a(planes, cfg.width, cfg.height,
-                                 cfg.log2_ctu_size, tuple(sizes), **args)
+        res = fused_luma_stage_a(
+            planes, cfg.width, cfg.height, cfg.log2_ctu_size, tuple(sizes),
+            a['K'], a['trellis'], a['ls'], a['bd'], a['lam_dq'], a['lv'],
+            a['lam'], a['mats'], a['seltabs'])
         self._phase('device_dispatch', time.perf_counter() - t0)
         return batch, sizes, res, dev_planes
 
     def _upload(self, planes):
-        """Planes to the device as uint8, from pinned memory without
-        blocking (the caching host allocator keeps the pinned block until
-        the copy has run)."""
+        """Planes (or rows of small integers) to the device as uint8, from
+        pinned memory without blocking (the caching host allocator keeps
+        the pinned block until the copy has run)."""
         host = torch.from_numpy(np.stack(planes).astype(np.uint8))
         if self.device.type == 'cuda':
             host = host.pin_memory()
@@ -341,7 +363,11 @@ class WavefrontSearch:
         self._phase('host_select', time.perf_counter() - t0)
         t0 = time.perf_counter()
         chroma_cache = {}
-        self._prefill_chroma_cache(chroma_cache, luma_mode_b, sizes, F)
+        if self._chroma_device:
+            self._prefill_chroma_device(chroma_cache, luma_mode_b, sizes, F,
+                                        dev_planes)
+        else:
+            self._prefill_chroma_cache(chroma_cache, luma_mode_b, sizes, F)
         self._phase('host_chroma_rd', time.perf_counter() - t0)
         t0 = time.perf_counter()
         all_trees = []
@@ -502,6 +528,63 @@ class WavefrontSearch:
                 best = np.argmin(c, axis=1)
                 cost = np.take_along_axis(c, best[:, None, :], axis=1)[:, 0]
                 cache[('cclm', cs)] = (cost, (81 + best).astype(np.int32))
+
+    def _prefill_chroma_device(self, cache, luma_mode_b, sizes, F,
+                               dev_planes):
+        """All chroma stage-A costs on the device (fused_chroma_stage_a),
+        combined in f32 there, fetched in one copy and cut to the chunk's
+        F frames."""
+        res = self._dispatch_chroma(luma_mode_b, sizes, dev_planes)
+        parts = [(k, x) for k, v in res.items()
+                 for x in (v if isinstance(v, tuple) else (v,))]
+        flat = torch.cat([x.reshape(-1).to(torch.float32)
+                          for _, x in parts]).cpu().numpy()   # waits
+        host, o = {}, 0
+        for k, x in parts:
+            host.setdefault(k, []).append(
+                flat[o:o + x.numel()].reshape(x.shape)[:F])
+            o += x.numel()
+        for (tag, cs), v in host.items():
+            if tag == 'd':
+                cache[('leaf', 2 * cs)] = v[0].astype(np.float64)
+            elif tag == 'sc':
+                cache[('scipu', 8)] = v[0].astype(np.float64)
+            else:
+                best, pick = v
+                cache[('cclm', cs)] = (best.astype(np.float64),
+                                       (81 + pick).astype(np.int32))
+
+    def _dispatch_chroma(self, luma_mode_b, sizes, dev_planes):
+        """Dispatch the fused chroma stage A for one chunk; does NOT block
+        (the modes go up from pinned memory). luma_mode_b: {s: (F, N)}
+        host luma modes, padded here to the planes' bucket. Returns
+        fused_chroma_stage_a's dict, still on the device."""
+        cfg = self.cfg
+        W, H = cfg.width, cfg.height
+        css = self._chroma_sizes()
+        scipu = 4 in sizes and 8 in sizes
+        Fp = int(dev_planes[0].shape[0])
+        a = self._stage_a_args()
+
+        def up(a):
+            a = np.asarray(a)
+            if a.shape[0] < Fp:
+                a = np.concatenate([a] + [a[-1:]] * (Fp - a.shape[0]))
+            return self._upload(a)
+
+        dmodes = {cs: up(luma_mode_b[2 * cs]) for cs in css}
+        if scipu:
+            m4 = luma_mode_b[4]
+            scipu_modes = up(m4.reshape(-1, H // 4, W // 4)[:, 1::2, 1::2]
+                             .reshape(m4.shape[0], -1))
+        else:
+            scipu_modes = torch.zeros((Fp, 1), dtype=torch.uint8,
+                                      device=self.device)
+        return fused_chroma_stage_a(
+            *dev_planes, W, H, cfg.log2_ctu_size, css,
+            bool(cfg.cclm_enabled), scipu, a['trellis'], dmodes,
+            scipu_modes, a['ls_c'], a['bd_c'], a['lam_dq'], a['lv'],
+            a['lam'], a['cclm_bits'], a['mats_c'])
 
     def _cclm_cached(self, cache, cs, fi):
         cc, cm = cache[('cclm', cs)]
@@ -721,6 +804,148 @@ def _luma_consts(W, H, log2_ctu, sizes, device):
     return consts
 
 
+@functools.lru_cache(maxsize=None)
+def _chroma_consts(W, H, log2_ctu, css, device):
+    """Static per-geometry chroma tables on the device (cached per process,
+    geometry and device): per chroma size the substitution gather, the
+    [1 2 1] filter indices, the availability masks and the block grid."""
+    consts = {}
+    for cs in css:
+        src, fill = refs.subst_gather(W, H, cs, 1, log2_ctu)
+        pi, ni, keep = refs.filter121_indices(cs)
+        masks = refs.avail_masks(W, H, cs, 1, log2_ctu)
+        xs, ys = refs.block_grid(W, H, cs, 1)
+        consts[cs] = tuple(torch.as_tensor(x, device=device) for x in (
+            src.astype(np.int64), fill, pi.astype(np.int64),
+            ni.astype(np.int64), keep, masks, xs, ys))
+    return consts
+
+
+def fused_chroma_stage_a(py, pcb, pcr, W, H, log2_ctu, css, cclm, scipu,
+                         trellis, dmodes, scipu_modes, ls_c, bd_c, lam_dq,
+                         lv, lam, cclm_bits, mats):
+    """The whole chroma stage A for one chunk (the JAX
+    `_fused_chroma_builder`), from the ORIGINAL planes: for every chroma
+    size cs in `css`, the derived-mode RD cost per block (cb + cr), the
+    SCIPU variant at cs = 4 when `scipu`, and, when `cclm`, the three CCLM
+    candidates' costs with their mode bits and the pick.
+
+    py: (F, H*W), pcb / pcr: (F, H*W/4) uint8 planes on the device;
+    dmodes: {cs: (F, N_cs) derived modes}; scipu_modes: (F, N_4) (unused
+    without SCIPU); ls_c / bd_c: the chroma QP's parameters for cs 4, 8,
+    16; lam_dq / lv: the stage-A quantizer tables (trellis variants when
+    `trellis`: K1, else K2); lam: f32 lambda; cclm_bits: (3,) f32; mats:
+    {cs: intra_pred.mats_device_f32(cs, 1, device)}. Every cost is
+    ssd + lam * rate / 16384 with one rounding (_rd_cost). Returns
+    {('d', cs): (F, N) f32, ('sc', 4): (F, N) f32, ('cc', cs): (best cost
+    (F, N) f32, pick (F, N) int8, the first of equal costs)}, all still on
+    the device."""
+    F = py.shape[0]
+    consts = _chroma_consts(W, H, log2_ctu, css, py.device)
+    py = py.to(torch.int32)
+    # cb and cr as one batch of 2F planes: every block's cost is its own,
+    # so one RD chain serves both and the halves are added after
+    pc = torch.cat([pcb, pcr]).to(torch.int32)
+    hh, hw = H // 2, W // 2
+    out = {}
+    for cs in css:
+        src, fill, pi, ni, keep, masks, xs, ys = consts[cs]
+        lgc = cs.bit_length() - 1
+        N = src.shape[0]
+        ls, bd = ls_c[lgc - 2], bd_c[lgc - 2]
+        m = mats[cs]
+
+        def eval_rd(pred, orig):
+            ssd, rate = _rd_eval_inner(pred.reshape(-1, cs, cs), orig, ls,
+                                       bd, lam_dq, lv, lgc, trellis)
+            return _rd_cost(ssd, rate, lam)
+
+        oc = _tiles(pc, hh, hw, cs)                    # (2*F*N, cs, cs)
+        vc = _ref_vectors(pc, src, fill, pi, ni, keep)
+
+        def derived_cost(modes):
+            c = eval_rd(intra_pred.predict_modes_m(
+                vc, modes.reshape(-1).repeat(2), m), oc).reshape(2, F, N)
+            return c[0] + c[1]
+
+        if cs in dmodes:
+            out[('d', cs)] = derived_cost(dmodes[cs])
+        if cs == 4 and scipu:
+            out[('sc', cs)] = derived_cost(scipu_modes)
+        if cclm:
+            out[('cc', cs)] = _cclm_costs(
+                py, pc, oc, masks, xs, ys, cs, F, H, W, log2_ctu, eval_rd,
+                lam, cclm_bits)
+    return out
+
+
+def _cclm_costs(py, pc, oc, masks, xs, ys, cs, F, H, W, log2_ctu, eval_rd,
+                lam, cclm_bits):
+    """The three CCLM candidates (81, 82, 83) of every cs-block of the F
+    frames, candidate-major over (plane, frame, block) in one batch of
+    6 * F * N (pc: the 2F cb-then-cr planes, oc their blocks): the cb + cr
+    RD cost plus lam * the mode's bits, and the pick (int8 0..2, the first
+    of equal costs, as jnp.argmin) with its cost."""
+    dev = py.device
+    N = xs.shape[0]
+    B1 = F * N
+    hh, hw = H // 2, W // 2
+    # the frame of each (plane, frame, block): cr's planes follow cb's
+    frame = torch.arange(2 * F, dtype=torch.int32, device=dev)[:, None] \
+        .expand(2 * F, N).reshape(-1)
+    xB, yB = xs.repeat(F), ys.repeat(F)
+    own = _tiles(py, H, W, 2 * cs)
+    TS, LS, LC = intra_pred.cclm_strips(py, 2 * xB, 2 * yB, cs, H, W,
+                                        frame[:B1])
+    ct, cl = intra_pred.cclm_cstrips(pc, xB.repeat(2), yB.repeat(2), cs, hh,
+                                     hw, frame)
+
+    def rep(a, n):
+        return a.repeat((n,) + (1,) * (a.dim() - 1))
+
+    m6 = torch.arange(81, 84, dtype=torch.int32, device=dev)[:, None] \
+        .expand(3, 2 * B1).reshape(-1)
+    p6 = intra_pred.cclm_from_own(
+        m6, rep(own, 6), rep(LC, 6), rep(TS, 6), rep(LS, 6), rep(ct, 3),
+        rep(cl, 3), masks.repeat(6 * F, 1), rep(2 * yB, 6), cs, 1 << log2_ctu)
+    c6 = eval_rd(p6, rep(oc, 3)).reshape(3, 2, F, N)
+    cc = c6[:, 0] + c6[:, 1]
+    # XLA contracts the reference's cc + lam * bits into one FMA as well
+    c0, c1, c2 = transforms.fma(lam, cclm_bits[:, None, None], cc).unbind(0)
+    # the first index of the least cost, with two strict compares
+    first = c1 < c0
+    best = torch.where(first, c1, c0)
+    pick = first.to(torch.int8)
+    second = c2 < best
+    return torch.where(second, c2, best), torch.where(second, 2, pick)
+
+
+def _rd_cost(ssd, rate, lam):
+    """The stage-A RD cost ssd + lam * (rate / 16384) in f32 with one
+    rounding: XLA contracts the reference's expression into a fused
+    multiply-add."""
+    return transforms.fma(lam, rate / 16384.0, ssd)
+
+
+def _tiles(flat, h, w, s):
+    """(F, h*w) planes -> (F*N, s, s) blocks of the aligned s-grid, in
+    raster order of the blocks."""
+    return flat.reshape(-1, h // s, s, w // s, s).permute(0, 1, 3, 2, 4) \
+        .reshape(-1, s, s)
+
+
+def _ref_vectors(flat, src, fill, pi, ni, keep):
+    """Every block's reference vector v = [u, [1 2 1]-filtered u] from
+    (F, h*w) planes: the static substitution gather (`refs.subst_gather`;
+    blocks with nothing available read 128) and the filter's index
+    tables (`refs.filter121_indices`). Returns (F*N, 2L) int32."""
+    u = torch.where(fill[None, :, None], 128, flat[:, src])
+    u = u.reshape(-1, src.shape[1])
+    uf = torch.where(keep[None, :], u,
+                     (u[:, pi] + 2 * u + u[:, ni] + 2) >> 2)
+    return torch.cat([u, uf], dim=1)
+
+
 def fused_luma_stage_a(planes, W, H, log2_ctu, sizes, K, trellis, ls, bd,
                        lam_dq, lv, lam, mats, seltabs):
     """The whole luma stage A for one chunk (the JAX `_fused_luma_builder`
@@ -729,21 +954,15 @@ def fused_luma_stage_a(planes, W, H, log2_ctu, sizes, K, trellis, ls, bd,
     top-2 costs f32 (F, N, 2))}, all still on the device."""
     F = planes.shape[0]
     consts = _luma_consts(W, H, log2_ctu, sizes, planes.device)
-    planes = planes.to(torch.int32)
-    flat = planes.reshape(F, H * W)
+    flat = planes.to(torch.int32).reshape(F, H * W)
     sc, mb67, po, idx_bits, rem_bits = seltabs
     out = {}
     for s in sizes:
         src, fill, pi, ni, keep, top_mask = consts[s]
-        N, L = src.shape
-        u = torch.where(fill[None, :, None], 128, flat[:, src])   # (F, N, L)
-        u = u.reshape(-1, L)
-        uf = torch.where(keep[None, :], u,
-                         (u[:, pi] + 2 * u + u[:, ni] + 2) >> 2)
-        v = torch.cat([u, uf], dim=1)
+        N = src.shape[0]
+        v = _ref_vectors(flat, src, fill, pi, ni, keep)
         pred = intra_pred.predict_all_modes_m(v, mats[s], s)
-        blocks = planes.reshape(F, H // s, s, W // s, s) \
-            .permute(0, 1, 3, 2, 4).reshape(-1, s * s)
+        blocks = _tiles(flat, H, W, s).reshape(-1, s * s)
         cands, cost = _stage_a_select(pred, blocks, K, ls[s], bd[s], lam_dq,
                                       lv, s.bit_length() - 1, lam, trellis)
         out[s] = _select_modes_dev(
@@ -772,9 +991,7 @@ def _stage_a_select(pred, orig, num_cands, ls, bd_shift, lam_dq, lv, log2,
     o = orig[:, None, :].expand(-1, K, -1)
     ssd, rate = _rd_eval_inner(p.reshape(-1, s, s), o.reshape(-1, s, s),
                                ls, bd_shift, lam_dq, lv, log2, trellis)
-    cost = transforms.fma(lam, rate.reshape(-1, K) / 16384.0,
-                          ssd.reshape(-1, K))
-    return cands.to(torch.int8), cost
+    return cands.to(torch.int8), _rd_cost(ssd, rate, lam).reshape(-1, K)
 
 
 def _rd_eval_inner(pred, orig, ls, bd_shift, lam_dq, lv, log2,

@@ -4,7 +4,8 @@ wrenc_tpu.tools.encode, plus --device.
     python -m wrenc_tpu_torch.tools.encode -i in.yuv -o out.vvc \
         --input-size 352x288 --output-size 352x288 --num-pictures 30 \
         --qp 32 [--max-split-depth 3] [--reconst rec.yuv] \
-        [--extra-params K=V,...] [--device cuda|cpu]
+        [--extra-params K=V,...] [--search wavefront|scalar] \
+        [--device cuda|cpu]
 """
 import argparse
 import sys
@@ -46,10 +47,6 @@ def main(argv=None):
                     help="torch device for stage A (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.search == "scalar":
-        raise NotImplementedError(
-            "the scalar search is not ported to wrenc_tpu_torch yet "
-            "(ROADMAP.md, 'Modules still to port')")
     if args.dp not in (0, 1):
         raise NotImplementedError(
             "frame sharding (--dp) is not ported to wrenc_tpu_torch yet "
@@ -57,7 +54,6 @@ def main(argv=None):
 
     from ..core.config import EncoderConfig
     from ..encoder import Encoder
-    from ..search import WavefrontSearch
     from . import yuv
 
     w, h = parse_size(args.output_size)
@@ -69,7 +65,13 @@ def main(argv=None):
     if args.extra_params:
         cfg.rate_model.apply_extra_params(
             dict(kv.split("=") for kv in args.extra_params.split(",")))
-    enc = Encoder(cfg, search=WavefrontSearch(cfg, device=args.device))
+    if args.search == "wavefront":
+        from ..search import WavefrontSearch
+        search = WavefrontSearch(cfg, device=args.device)
+    else:
+        from ..spec.encoder import ScalarEncoder
+        search = ScalarEncoder(cfg)        # host only: --device unused
+    enc = Encoder(cfg, search=search)
 
     fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
     frames = yuv.read_yuv420(fin, w, h, args.num_pictures)
