@@ -40,7 +40,9 @@ Run from the root of a checkout. Phases, each fatal on failure:
      debug mode "error" with the counters reset just before and read just
      after (K2's launches checked against the chunk's shapes), those
      launches replayed in a CUDA graph (K2's device time per chunk), the
-     PyTorch operators it dispatches; then the device engine in its
+     PyTorch operators it dispatches; the same chunk under
+     stage_a_trellis_rd=1 (K1's launches at the chroma shapes, counted
+     the same way); then the device engine in its
      default configuration (device chroma), one 4-frame group, one
      encode, its chroma stage A alone as above, and its scan alone (rank
      steps, scan time);
@@ -64,7 +66,21 @@ Run from the root of a checkout. Phases, each fatal on failure:
      operators it dispatches; again with CUDA events around every K1
      launch (summed device time, shapes); and K1 through
      trellis_rate_batch against its plain twin at the scan's shapes in
-     one launch, with kernel-alone and plain times beside the bound.
+     one launch, with kernel-alone and plain times beside the bound;
+  9. the commit paths, on CIF frames at QP 32: qp_delta_pattern=(-3, 0, 4)
+     on 2 frames (the three decoders reproduce the reconstruction, card
+     bytes == CPU bytes, wall and phase times); rd_commit=False,
+     trellis_commit=False and WRENC_STAGE_A_SELECT=host on 16 frames
+     each, warm-up then timed with the counters reset just before and read
+     just after (fps, phase times, decode == reconstruction, card bytes ==
+     CPU bytes on 2 frames); the apply-decisions prototype
+     commit_frame_device on the trees of 2 frames of a trellis_commit=False,
+     rd_commit=False search: reconstruction and levels == the NumPy
+     _commit's, K2's launches counted from 0 == the plan's steps, padded
+     rows only in the pad slot, the commit's wall time and K2's device time
+     for those launches in a CUDA graph beside their bound, then K2 in both
+     instantiations at every (n, padded B) it launched, exactly against
+     its plain twin with the prototype's tables.
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
 a CUDA device or outside a checkout of the repo. Imports nothing of JAX.
@@ -868,6 +884,233 @@ def phase_card_vs_cpu():
     return out
 
 
+@contextlib.contextmanager
+def _env(key, value):
+    """os.environ[key] = value inside the block (None: unset), restored
+    after."""
+    old = os.environ.get(key)
+    if value is None:
+        os.environ.pop(key, None)
+    else:
+        os.environ[key] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = old
+
+
+def _same_planes(a, b, name):
+    if len(a) != len(b) or not all(
+            (a[k][c] == b[k][c]).all() for k in range(len(a))
+            for c in range(3)):
+        raise AssertionError(f"{name}: reconstructions differ")
+
+
+def phase_commit_paths():
+    """The commit paths on CIF synthetic frames at QP 32 (the main path's
+    geometry): per-QG QP (qp_delta_pattern) on 2 frames, its three
+    decoders and card bytes == CPU bytes; rd_commit=False,
+    trellis_commit=False and WRENC_STAGE_A_SELECT=host on 16 frames each,
+    warm-up then timed with the counters reset just before and read just
+    after, decode == reconstruction, card bytes == CPU bytes on 2 frames;
+    the apply-decisions prototype commit_frame_device on the trees of 2
+    frames of a trellis_commit=False, rd_commit=False search (_proto)."""
+    import numpy as np
+    from wrenc_tpu_torch.conformance import decode_annexb_independent
+    from wrenc_tpu_torch.decoder import decode_annexb
+    from wrenc_tpu_torch.encoder import Encoder
+    from wrenc_tpu_torch.search import WavefrontSearch
+    frames = synth_frames(16, *CIF, seed=1)
+    out = {}
+
+    name = "qp_delta_pattern=(-3, 0, 4)"
+    cfg = _cfg(0)
+    cfg.qp_delta_pattern = (-3, 0, 4)
+    enc = Encoder(cfg, search=WavefrontSearch(cfg))
+    stream, recons, dt, launches = _timed_encode(enc, frames[:2],
+                                                 ["dq_greedy"])
+    for how, dec in (("shipped", decode_annexb(stream, use_native=False)),
+                     ("shipped, native", decode_annexb(stream)),
+                     ("clean-room", decode_annexb_independent(stream))):
+        _same_planes([tuple(np.asarray(p) for p in f) for f in dec],
+                     recons, f"{name}, {how} decoder")
+    s_cpu, _ = Encoder(cfg, search=WavefrontSearch(cfg, device="cpu")) \
+        .encode(frames[:2])
+    if s_cpu != stream:
+        raise AssertionError(f"{name}: card bytes != CPU bytes")
+    phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
+    out[name] = {"frames": 2, "seconds": dt, "bytes": len(stream),
+                 "launches": launches, "phase_times": phases}
+    log(f"commit paths [{name}]: 2 CIF frames in {dt:.3f} s, {len(stream)} "
+        f"bytes, launches {launches}; the three decoders reproduce the "
+        f"reconstruction; card bytes == CPU bytes")
+    log(f"  phase_times (s): {json.dumps(phases)}")
+
+    cfg = _cfg(0)
+    for name, kw, sel in (("rd_commit=False", {"rd_commit": False}, None),
+                          ("trellis_commit=False",
+                           {"trellis_commit": False}, None),
+                          ("WRENC_STAGE_A_SELECT=host", {}, "host")):
+        with _env("WRENC_STAGE_A_SELECT", sel):
+            search = WavefrontSearch(cfg, **kw)
+            cpu = WavefrontSearch(cfg, device="cpu", **kw)
+        enc = Encoder(cfg, search=search)
+        enc.encode(frames)                                 # warm-up
+        stream, recons, dt, launches = _timed_encode(enc, frames,
+                                                     ["dq_greedy"])
+        _decodes(stream, recons, name)
+        phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
+        s2, _ = enc.encode(frames[:2])
+        c2, _ = Encoder(cfg, search=cpu).encode(frames[:2])
+        if s2 != c2:
+            raise AssertionError(f"{name}: card bytes != CPU bytes")
+        out[name] = {"fps": len(frames) / dt, "seconds": dt,
+                     "bytes": len(stream), "psnr_y": _psnr_y(recons, frames),
+                     "launches": launches, "phase_times": phases}
+        log(f"commit paths [{name}]: {len(frames)} CIF frames in {dt:.3f} s "
+            f"= {out[name]['fps']:.3f} fps, {len(stream)} bytes, PSNR-Y "
+            f"{out[name]['psnr_y']:.2f} dB, launches {launches}; decode == "
+            f"reconstruction; card bytes == CPU bytes on 2 frames")
+        log(f"  phase_times (s): {json.dumps(phases)}")
+    out["commit_frame_device"] = _proto(frames[:2])
+    return out
+
+
+def _proto(frames):
+    """commit_frame_device on the card against the port's NumPy _commit
+    (reconstruction and every CU's levels), per frame: its plan's padded
+    rows scatter only into the pad slot (the real rows' targets distinct,
+    no gather reads the slot); every launch counter set to 0 just before
+    each call and read just after: K2's equals the plan's steps (non-empty
+    component groups) and the launches its helper saw, K1's are 0;
+    the commit's wall time; those very launches replayed in a CUDA graph
+    (K2's device time per frame) beside their bound. Then K2's launch
+    helper in both instantiations at every distinct (n, padded B) the
+    prototype launched, with the tables it uploaded, exactly against
+    greedy_depquant_plain; device and plain time per launch."""
+    import copy
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.search import WavefrontSearch
+    from wrenc_tpu_torch.search import device_commit as dc
+    cfg = _cfg(0)
+    search = WavefrontSearch(cfg, trellis_commit=False, rd_commit=False)
+    launch = kq._launch_k2
+    per_frame, shapes = [], {}
+    launches = dict.fromkeys(_counters(), 0)
+    for fi, (trees, _) in enumerate(search.encode_frames(frames)):
+        ref, mine = copy.deepcopy(trees), copy.deepcopy(trees)
+        search.orig = [np.asarray(p, np.int32) for p in frames[fi]]
+        t0 = time.perf_counter()
+        rec_np = search._commit(ref)
+        np_s = time.perf_counter() - t0
+        cus = search._collect_cus(mine)
+        steps = dc.plan_steps(cfg, cus)
+        for st in steps:
+            s = 1 << st.log2
+            src, _, _, _, _, scat = dc._geometry(
+                cfg.width, cfg.height, s, st.c_idx, cfg.log2_ctu_size)[:6]
+            pad = (cfg.width >> (st.c_idx > 0)) * (cfg.height
+                                                   >> (st.c_idx > 0))
+            real = scat[st.idx[:st.B]].reshape(-1)
+            if (len(np.unique(real)) != real.size or real.max() >= pad
+                    or src[st.idx].max() >= pad
+                    or (st.idx[st.B:] != st.idx[st.B - 1]).any()):
+                raise AssertionError("commit_frame_device: a step's rows "
+                                     "repeat a target or read the pad slot")
+        recorded = []
+
+        def record(*a):
+            recorded.append(a)
+            return launch(*a)
+        kq._launch_k2 = record
+        counters = _counters()
+        for f in counters.values():
+            f.launches = 0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = dc.commit_frame_device(cfg, frames[fi], cus)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            kq._launch_k2 = launch
+        counted = {k: f.launches for k, f in counters.items()}
+        for k, v in counted.items():
+            launches[k] += v
+        n = counted["dq_greedy"]
+        if not n == len(steps) == len(recorded):
+            raise AssertionError(f"commit_frame_device: K2 launched {n} "
+                                 f"times, {len(recorded)} seen, "
+                                 f"{len(steps)} steps")
+        if counted["dq_trellis"] or counted["dq_trellis_batch"]:
+            raise AssertionError(f"commit_frame_device launched K1: "
+                                 f"{counted}")
+        for c in range(3):
+            if not (rec[c] == rec_np[c]).all():
+                raise AssertionError(f"commit_frame_device: plane {c} != "
+                                     "the NumPy commit's")
+        for a, b in zip(cus, search._collect_cus(ref)):
+            for c in range(3):
+                if (a.coeffs[c] is None) != (b.coeffs[c] is None) or (
+                        a.coeffs[c] is not None
+                        and not (a.coeffs[c] == b.coeffs[c]).all()):
+                    raise AssertionError("commit_frame_device: levels != "
+                                         "the NumPy commit's")
+        device_ms = _graph_ms(lambda: [launch(*a) for a in recorded], n=2,
+                              reps=5)
+        bounds = [_chroma_bound(a[0].shape[1] ** 2, a[0].shape[0],
+                                "dq_greedy") for a in recorded]
+        for a in recorded:
+            key = (a[0].shape[1], a[0].shape[0])
+            shapes.setdefault(key, [a, 0])[1] += 1
+        per_frame.append({
+            "steps": len(steps), "k2_launches": n, "cus": len(cus),
+            "seconds": dt, "numpy_commit_seconds": np_s,
+            "k2_device_ms": device_ms,
+            "k2_bound_ms": sum(max(b) for b in bounds),
+            "k2_bytes_ms": sum(b[0] for b in bounds)})
+        f = per_frame[-1]
+        log(f"commit_frame_device, CIF frame {fi}: launches counted from 0 "
+            f"{counted} (K2 = {len(steps)} steps, {len(cus)} CUs), {dt:.3f} s "
+            f"(NumPy commit {np_s:.3f} s), reconstruction and levels == the "
+            f"NumPy commit's; K2 {device_ms:.4f} ms device time for those "
+            f"launches (CUDA graph), bound {f['k2_bound_ms']:.4f} ms "
+            f"(bytes {f['k2_bytes_ms']:.4f})")
+    rows, cases = [], 0
+    for (s, B), (a, count) in sorted(shapes.items()):
+        t, ls, bd, lam, lv, lg = a
+        want = kq.greedy_depquant_plain(t, ls, bd, lam, lg, lv)
+        for lanes in (1, 8):
+            e = _err(launch(*a, lanes), want)
+            torch.cuda.synchronize()
+            if e != 0:
+                raise AssertionError(f"K2 ({lanes} lanes) != plain at the "
+                                     f"prototype's n={s} B={B}: {e}")
+            cases += 1
+        bytes_ms, ops_ms = _chroma_bound(s * s, B, "dq_greedy")
+        rows.append({
+            "n": s, "B": B, "launches": count, "lanes": kq.k2_lanes(lg, B),
+            "device_ms": _graph_ms(lambda: launch(*a)),
+            "plain_ms": _time_ms(
+                lambda: kq.greedy_depquant_plain(t, ls, bd, lam, lg, lv), 1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+    log(f"K2: equal to its plain version in {cases} cases at the "
+        f"prototype's {len(rows)} distinct (n, padded B), both "
+        f"instantiations, with the tables it uploaded; per launch "
+        f"(n, B, launches, device ms, plain ms, bound ms): "
+        + json.dumps([(r["n"], r["B"], r["launches"],
+                       round(r["device_ms"], 5), round(r["plain_ms"], 3),
+                       round(r["bound_ms"], 6)) for r in rows]))
+    return {"frames": per_frame, "per_launch": rows, "cases": cases,
+            "launches": launches}
+
+
 DEVICE_ENGINE = {"commit_engine": "device", "chroma_stage_a": "native"}
 
 
@@ -911,13 +1154,16 @@ def _chroma_chunk(search, frames, name):
     """One chunk's device chroma stage A alone, from the luma modes its
     decide saw. The dispatch runs under the CUDA sync debug mode "error"
     (any blocking call raises) with the launch counters set to 0 just
-    before it and read just after: K2's count must equal the launches its
-    launch helper saw and _chroma_jobs' count for the chunk. Then those
-    very launches (their arguments kept) replayed in a CUDA graph: K2's
-    device time per chunk beside its bound; a second dispatch counting
-    the PyTorch operators; a third with its one fetch."""
+    before it and read just after: the count of the kernel its RD chain
+    runs (K2, or K1 under stage_a_trellis_rd=1) must equal the launches
+    that kernel's launch helper saw and _chroma_jobs' count for the
+    chunk, and the other kernels' must be 0. Then those very launches
+    (their arguments kept) replayed in a CUDA graph: the kernel's device
+    time per chunk beside its bound; a second dispatch counting the
+    PyTorch operators; a third with its one fetch."""
     import torch
     from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import trellis as ktr
     seen = {}
     prefill = search._prefill_chroma_device
 
@@ -931,14 +1177,17 @@ def _chroma_chunk(search, frames, name):
         del search._prefill_chroma_device
     lmb, sizes, devp = seen["args"]
     Fp = int(devp[0].shape[0])
-    launch, recorded = kq._launch_k2, []
+    trellis = bool(search.rm.stage_a_trellis_rd)
+    kname = "dq_trellis" if trellis else "dq_greedy"
+    mod, helper = (ktr, "_launch_k1") if trellis else (kq, "_launch_k2")
+    launch, recorded = getattr(mod, helper), []
 
     def record(*a):
         recorded.append(a)
         return launch(*a)
     counters = _counters()
     torch.cuda.synchronize()
-    kq._launch_k2 = record
+    setattr(mod, helper, record)
     for f in counters.values():
         f.launches = 0
     torch.cuda.set_sync_debug_mode("error")
@@ -948,20 +1197,25 @@ def _chroma_chunk(search, frames, name):
         t2 = time.perf_counter()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-        kq._launch_k2 = launch
+        setattr(mod, helper, launch)
     launches = {k: f.launches for k, f in counters.items()}
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     want = sum(n for _, _, n in _chroma_jobs(
         (search.cfg.width, search.cfg.height), Fp))
-    if not launches["dq_greedy"] == len(recorded) == want or \
-            launches["dq_trellis"] or launches["dq_trellis_batch"]:
+    others = sum(v for k, v in launches.items() if k != kname)
+    if not launches[kname] == len(recorded) == want or others:
         raise AssertionError(f"{name}: chroma stage A launched {launches}, "
-                             f"K2's helper saw {len(recorded)}, want {want}")
-    shapes = [(a[0].shape[1], a[0].shape[0],
-               kq.k2_lanes(a[5], a[0].shape[0])) for a in recorded]
+                             f"{kname}'s helper saw {len(recorded)}, want "
+                             f"{want}")
+    if trellis:
+        shapes = [(a[0][0][0].shape[1], a[0][0][0].shape[0],
+                   ktr.k1_lanes(a[0])) for a in recorded]
+    else:
+        shapes = [(a[0].shape[1], a[0].shape[0],
+                   kq.k2_lanes(a[5], a[0].shape[0])) for a in recorded]
     device_ms = _graph_ms(lambda: [launch(*a) for a in recorded], n=5)
-    bounds = [_chroma_bound(s * s, B, "dq_greedy") for s, B, _ in shapes]
+    bounds = [_chroma_bound(s * s, B, kname) for s, B, _ in shapes]
     with _OpCount() as oc:
         search._dispatch_chroma(lmb, sizes, devp)
     torch.cuda.synchronize()
@@ -969,20 +1223,20 @@ def _chroma_chunk(search, frames, name):
     search._prefill_chroma_device({}, lmb, sizes, len(frames), devp)
     t5 = time.perf_counter()
     ops = dict(oc.counts.most_common())
-    out = {"frames": Fp, "dispatch_ms": (t2 - t1) * 1e3,
+    out = {"frames": Fp, "kernel": kname, "dispatch_ms": (t2 - t1) * 1e3,
            "dispatch_to_idle_ms": (t3 - t1) * 1e3,
            "with_fetch_ms": (t5 - t4) * 1e3, "launches": launches,
-           "k2_shapes": shapes, "k2_device_ms": device_ms,
-           "k2_bound_ms": sum(max(b) for b in bounds),
-           "k2_bytes_ms": sum(b[0] for b in bounds),
+           "shapes": shapes, "device_ms": device_ms,
+           "bound_ms": sum(max(b) for b in bounds),
+           "bytes_ms": sum(b[0] for b in bounds),
            "ops": sum(ops.values()), "top_ops": dict(list(ops.items())[:12])}
     log(f"  chroma stage A, one {Fp}-frame chunk alone ({name}): dispatch "
         f"{out['dispatch_ms']:.1f} ms (under the sync debug mode 'error'), "
         f"until the device is idle {out['dispatch_to_idle_ms']:.1f} ms, "
         f"with the fetch {out['with_fetch_ms']:.1f} ms; launches {launches}"
-        f" (cs, B, lanes) {shapes}; K2 {device_ms:.4f} ms device time per "
-        f"chunk (those launches in a CUDA graph), bound "
-        f"{out['k2_bound_ms']:.4f} ms; {out['ops']} PyTorch operators, most "
+        f" (cs, B, lanes) {shapes}; {kname} {device_ms:.4f} ms device time "
+        f"per chunk (those launches in a CUDA graph), bound "
+        f"{out['bound_ms']:.4f} ms; {out['ops']} PyTorch operators, most "
         f"frequent {json.dumps(out['top_ops'])}")
     return out
 
@@ -1023,6 +1277,11 @@ def phase_1080p():
     log(f"  phase_times (s): {json.dumps(phases)}")
     out["chroma_one_chunk"] = _chroma_chunk(search, frames[:1],
                                             "1080p default")
+    # K1 at the chroma shapes: the same chunk under stage_a_trellis_rd=1
+    tcfg = EncoderConfig(width=P1080[0], height=P1080[1], qp=32)
+    tcfg.rate_model.stage_a_trellis_rd = 1.0
+    out["chroma_one_chunk_trellis"] = _chroma_chunk(
+        WavefrontSearch(tcfg), frames[:1], "1080p stage_a_trellis_rd=1")
 
     # the device engine in its default configuration: one 4-frame group
     dsearch = WavefrontSearch(cfg, commit_engine="device")
@@ -1410,6 +1669,7 @@ def main():
     main_path = phase_main_path()
     p1080 = phase_1080p()
     card_cpu = phase_card_vs_cpu()
+    paths = phase_commit_paths()
     dev = phase_device_commit(main_path["default"])
     batch = phase_batch_check(dev)
 
@@ -1434,6 +1694,13 @@ def main():
             p1080["device_engine"]["chroma_one_chunk"]}
     for n, c in chroma_chunks.items():
         per_path[f"chroma stage A alone, {n}"] = c["launches"]
+    trellis_chunk = p1080["chroma_one_chunk_trellis"]
+    per_path["chroma stage A alone, 1080p 1 frame, stage_a_trellis_rd=1"] = \
+        trellis_chunk["launches"]
+    for n, c in paths.items():
+        if n == "commit_frame_device":
+            n = "commit_frame_device, 2 CIF frames"
+        per_path[n] = c["launches"]
     kernels = []
     for name in ("dq_trellis", "dq_greedy"):
         r = rows[name]
@@ -1458,7 +1725,13 @@ def main():
             chroma_per_launch={n: [dict(cs=x["cs"], B=x["B"], **x[name])
                                    for x in v] for n, v in chroma.items()})
         if name == "dq_trellis":
-            kernels[-1].update(ptxas=build["ptxas"], lanes_sweep_4x4_ms=sweep)
+            kernels[-1].update(
+                ptxas=build["ptxas"], lanes_sweep_4x4_ms=sweep,
+                chroma_per_chunk={"1080p 1 frame, stage_a_trellis_rd=1": {
+                    "launches": trellis_chunk["launches"]["dq_trellis"],
+                    "device_ms": trellis_chunk["device_ms"],
+                    "bound_ms": trellis_chunk["bound_ms"],
+                    "bytes_ms": trellis_chunk["bytes_ms"]}})
         else:
             kernels[-1].update(
                 per_size_16_frames=r["per_size_16_frames"],
@@ -1469,10 +1742,13 @@ def main():
                 blocks_smem=build["k2_blocks_smem"],
                 chroma_per_chunk={
                     n: {"launches": c["launches"]["dq_greedy"],
-                        "device_ms": c["k2_device_ms"],
-                        "bound_ms": c["k2_bound_ms"],
-                        "bytes_ms": c["k2_bytes_ms"]}
-                    for n, c in chroma_chunks.items()})
+                        "device_ms": c["device_ms"],
+                        "bound_ms": c["bound_ms"],
+                        "bytes_ms": c["bytes_ms"]}
+                    for n, c in chroma_chunks.items()},
+                commit_prototype=paths["commit_frame_device"]["frames"],
+                commit_prototype_per_launch=paths["commit_frame_device"][
+                    "per_launch"])
     # K1 on the device commit path: per launch (one per wave), the mean
     # over the scan's launches (device time traced by torch.profiler
     # inside the scan; bound and plain time from each launch's jobs).
@@ -1503,6 +1779,7 @@ def main():
     log(f"main path: {json.dumps(main_path)}")
     log(f"1080p: {json.dumps(p1080)}")
     log(f"card vs CPU: {json.dumps(card_cpu)}")
+    log(f"commit paths: {json.dumps(paths)}")
     log(f"device engine: {json.dumps(dev)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,7 @@ from wrenc_tpu_torch.decoder import decode_annexb as port_decode
 from wrenc_tpu_torch.encoder import Encoder
 from wrenc_tpu_torch.search import WavefrontSearch
 
+from tests.test_torch_native_ref import jax_native_host_build  # noqa: F401
 from tests.test_entropy_roundtrip import synth_frame
 
 torch.set_num_threads(1)

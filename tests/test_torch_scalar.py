@@ -28,6 +28,7 @@ from wrenc_tpu_torch.encoder import Encoder
 from wrenc_tpu_torch.search import WavefrontSearch
 from wrenc_tpu_torch.spec.encoder import ScalarEncoder
 
+from tests.test_torch_native_ref import jax_native_host_build  # noqa: F401
 from tests.test_conformance_oracle import synth
 
 torch.set_num_threads(1)

@@ -22,6 +22,7 @@ from wrenc_tpu_torch.core.config import config_from_dict
 from wrenc_tpu_torch.search import WavefrontSearch
 from wrenc_tpu_torch.search import wavefront as twf
 
+from tests.test_torch_native_ref import jax_native_host_build  # noqa: F401
 from tests.test_entropy_roundtrip import synth_frame
 
 torch.set_num_threads(1)

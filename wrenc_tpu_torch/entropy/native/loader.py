@@ -22,29 +22,31 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _stale():
-    return (not os.path.exists(_SO)
-            or os.path.getmtime(_SO) < os.path.getmtime(_SRC))
+def _stale(src, so):
+    return (not os.path.exists(so)
+            or os.path.getmtime(so) < os.path.getmtime(src))
 
 
-def _build():
-    """Compile to a private temporary name and rename into place, under a
-    file lock: concurrent test workers and the commit thread never see a
-    half-written library."""
-    os.makedirs(_BUILD, exist_ok=True)
-    with open(os.path.join(_BUILD, "libwrenc_native.lock"), "w") as lk:
+def build_library(src, so):
+    """Compile `src` into the shared library `so` unless `so` is newer.
+
+    Compiles to a private temporary name and renames into place, under a
+    file lock beside `so`: concurrent test workers and the commit thread
+    never see a half-written library. Raises when g++ fails."""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    with open(so + ".lock", "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
-        if not _stale():
+        if not _stale(src, so):
             return
-        tmp = f"{_SO}.{os.getpid()}.tmp"
+        tmp = f"{so}.{os.getpid()}.tmp"
         proc = subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-             "-pthread", _SRC, "-o", tmp],
+             "-pthread", src, "-o", tmp],
             capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError("g++ build of wrenc_native.cpp failed:\n"
-                               + proc.stderr[-4000:])
-        os.replace(tmp, _SO)
+            raise RuntimeError(f"g++ build of {os.path.basename(src)} "
+                               "failed:\n" + proc.stderr[-4000:])
+        os.replace(tmp, so)
 
 
 def _get():
@@ -52,10 +54,12 @@ def _get():
     with _lock:
         if _lib is not None:
             return _lib
-        if _stale():
-            _build()
+        build_library(_SRC, _SO)
         lib = ctypes.CDLL(_SO)
+        lib.wrenc_trellis_quant.restype = None
+        lib.wrenc_greedy_quant.restype = None
         lib.wrenc_encode_slice.restype = ctypes.c_int64
+        lib.wrenc_commit_frames.restype = None
         lib.wrenc_commit_frames_tree.restype = None
         lib.wrenc_chroma_stage_a.restype = None
         lib.wrenc_cu_ranks2.restype = None
@@ -70,6 +74,31 @@ def available():
 
 def _i32p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def trellis_quant_native(t, ls, bd_shift, lam_dq, log2_n):
+    """t: (B, n, n) int32 -> q (B, n, n) int16 (exact trellis)."""
+    lib = _get()
+    t = np.ascontiguousarray(t, dtype=np.int32)
+    lam = np.ascontiguousarray(lam_dq, dtype=np.int32)
+    q = np.zeros(t.shape, dtype=np.int16)
+    lib.wrenc_trellis_quant(
+        _i32p(t), ctypes.c_int(t.shape[0]), ctypes.c_int(log2_n),
+        ctypes.c_int32(ls), ctypes.c_int32(bd_shift), _i32p(lam),
+        q.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
+    return q
+
+
+def greedy_quant_native(t, ls, bd_shift, lam_dq, log2_n):
+    lib = _get()
+    t = np.ascontiguousarray(t, dtype=np.int32)
+    lam = np.ascontiguousarray(lam_dq, dtype=np.int32)
+    q = np.zeros(t.shape, dtype=np.int16)
+    lib.wrenc_greedy_quant(
+        _i32p(t), ctypes.c_int(t.shape[0]), ctypes.c_int(log2_n),
+        ctypes.c_int32(ls), ctypes.c_int32(bd_shift), _i32p(lam),
+        q.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
+    return q
 
 
 _TREE_ID = {'S': 0, 'L': 1, 'C': 2}
@@ -174,6 +203,93 @@ def encode_slice_wpp_native(cfg, trees, slice_qp):
 
 def _i64p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def commit_frames_native(cfg, origs, cu_lists, ls_tab, bd_tab, lam_dq,
+                         trellis, n_threads=0):
+    """Native commit: reconstruct all frames' CU decisions in coding order.
+
+    origs: list of (Y, Cb, Cr) int planes per frame. cu_lists: per-frame
+    CuDecision lists in coding order. Fills cu.coeffs in place and returns
+    the recon planes per frame.
+    """
+    import os
+    from ...core import tables
+    lib = _get()
+    F = len(origs)
+    W, H = cfg.width, cfg.height
+    oy = np.ascontiguousarray(
+        np.stack([o[0] for o in origs]), dtype=np.int32)
+    ocb = np.ascontiguousarray(
+        np.stack([o[1] for o in origs]), dtype=np.int32)
+    ocr = np.ascontiguousarray(
+        np.stack([o[2] for o in origs]), dtype=np.int32)
+    ry = np.zeros_like(oy)
+    rcb = np.zeros_like(ocb)
+    rcr = np.zeros_like(ocr)
+
+    meta = []
+    frame_off = [0]
+    coeff_off = []
+    total = 0
+    for cus in cu_lists:
+        for cu in cus:
+            meta.extend([cu.x, cu.y, cu.log2, _TREE_ID[cu.tree],
+                         cu.luma_mode, cu.chroma_mode])
+            for c in range(3):
+                has = (c == 0 and cu.tree != 'C') or (c > 0 and cu.tree != 'L')
+                if has:
+                    sz = (1 << (cu.log2 - (0 if c == 0 else 1))) ** 2
+                    coeff_off.append(total)
+                    total += sz
+                else:
+                    coeff_off.append(-1)
+        frame_off.append(frame_off[-1] + len(cus))
+    meta = np.array(meta, dtype=np.int32)
+    frame_off = np.array(frame_off, dtype=np.int64)
+    coeff_off = np.array(coeff_off, dtype=np.int64)
+    coeffs = np.zeros(max(total, 1), dtype=np.int16)
+
+    def c32(a):
+        return np.ascontiguousarray(a, dtype=np.int32)
+
+    dcts = [c32(tables.dct2_matrix(n)) for n in (4, 8, 16, 32)]
+    angle = c32(tables.INTRA_ANGLE_TABLE)
+    fcm = c32(tables.F_C)
+    fgm = c32(tables.F_G)
+    pdpcw = c32(tables.PDPC_WEIGHTS)
+    cclmd = c32(tables.CCLM_DIV_SIG_TABLE)
+    ls_tab = c32(ls_tab)
+    bd_tab = c32(bd_tab)
+    lam = c32(lam_dq)
+    if n_threads <= 0:
+        n_threads = min(F, os.cpu_count() or 1)
+
+    lib.wrenc_commit_frames(
+        ctypes.c_int(W), ctypes.c_int(H), ctypes.c_int(cfg.log2_ctu_size),
+        ctypes.c_int(F), ctypes.c_int(n_threads),
+        _i32p(oy), _i32p(ocb), _i32p(ocr),
+        _i32p(ry), _i32p(rcb), _i32p(rcr),
+        _i32p(meta), _i64p(frame_off), _i64p(coeff_off),
+        coeffs.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        _i32p(ls_tab), _i32p(bd_tab), _i32p(lam),
+        ctypes.c_int(1 if cfg.dep_quant_enabled else 0),
+        ctypes.c_int(1 if trellis else 0),
+        _i32p(dcts[0]), _i32p(dcts[1]), _i32p(dcts[2]), _i32p(dcts[3]),
+        _i32p(angle), _i32p(fcm), _i32p(fgm), _i32p(pdpcw), _i32p(cclmd))
+
+    k = 0
+    for cus in cu_lists:
+        for cu in cus:
+            for c in range(3):
+                off = coeff_off[k]
+                k += 1
+                if off < 0:
+                    continue
+                s = 1 << (cu.log2 - (0 if c == 0 else 1))
+                cu.coeffs[c] = coeffs[off:off + s * s] \
+                    .reshape(s, s).copy()
+    return [(ry[f], rcb[f], rcr[f]) for f in range(F)]
 
 
 def _rd_consts(cfg, with_headers=False):

@@ -5,9 +5,13 @@ p  = clip((v @ W1 + c1) >> s1);  p' = clip((v @ W2 + B*p + 32) >> 6)
 
 with v = [u, filter121(u)] per block. Counterpart of
 wrenc_tpu/kernels/intra_pred.py (`mats_host_f32`, `predict_all_modes_m`,
-`predict_modes_m`, and the CCLM pieces the device commit engine uses:
-`cclm_strips`, `cclm_cstrips`, `cclm_from_own`). Every per-pixel sum is
-below 2^24, so f32 without TF32 is exact. The JAX module's one-hot
+`predict_modes_m`, `predict_modes`, `make_v`, and the CCLM pieces: the
+strips of the device commit engine and the device chroma stage A,
+`cclm_strips`, `cclm_cstrips`, `cclm_from_own`; the patches of the
+apply-decisions commit, `predict_cclm`, `cclm_luma_patch`,
+`cclm_chroma_patch`, `cclm_from_patches`; both share the pick rule
+`_cclm_picks`, the tap combine `_cclm_from_taps` and the fit). Every
+per-pixel sum is below 2^24, so f32 without TF32 is exact. The JAX module's one-hot
 selects (`_sel_cols`, the reciprocal LUT) are a TPU workaround for slow
 gathers; here they are plain gathers with the same results.
 """
@@ -87,6 +91,20 @@ def predict_modes_m(v, mode_ids, m):
     return torch.clamp(p2, 0, 255)
 
 
+def make_v(u, size):
+    """v = [u, filtered(u)] (N, 2L) int32 (host-side numpy)."""
+    uf = intra_mats.filter_ref_vector(u, size)
+    return np.concatenate([u, uf], axis=1).astype(np.int32)
+
+
+def predict_modes(v, mode_ids, size, c_idx):
+    """Per-block single-mode prediction: v (N, 2L) int32 tensor, mode_ids
+    (N,) -> (N, WH) int32, with the mode matrices of (size, c_idx) on v's
+    device."""
+    return predict_modes_m(v, mode_ids, mats_device_f32(size, c_idx,
+                                                        v.device))
+
+
 def _ilog2_u8(v):
     """floor(log2(v)) for int tensors with 0 <= v <= 255 (0 -> 0), exact
     integer formulation (comparison ladder; no float log)."""
@@ -146,24 +164,13 @@ def cclm_cstrips(ch_flat, xs, ys, cs, hh, hw, bf):
     return ct, cl
 
 
-def cclm_from_own(m, own, lcol, tstrip, lstrip, ct, cl_, masks, ly, cs,
-                  ctu_size):
-    """CCLM prediction reading the block's OWN luma from a dense array
-    (the commit wavefront evaluates CCLM in the step that committed the
-    co-located luma); only the thin boundary strips (cclm_strips /
-    cclm_cstrips) come from the reconstruction planes. Bit-identical to
-    the spec's CCLM (intra_predictor.rs:1604-2056).
-
-    m: (B,) modes 81/82/83; own: (B, 2cs, 2cs); lcol/tstrip/lstrip/ct/cl_
-    from the strip helpers; masks: (B, 4cs+1) availability rows; ly: (B,)
-    luma y. Returns (B, cs, cs) int32."""
-    B = m.shape[0]
+def _cclm_picks(m, masks, cs):
+    """The spec's boundary sample picks of modes m (B,) (81/82/83) from the
+    (B, 4cs+1) availability rows: left availability, the empty flag, the
+    count taken from the top and the top / left pick positions (B, 4)."""
     dev = m.device
-    i32 = torch.int32
-    TW, LH = 4 * cs + 1, 4 * cs
     tw = th = cs
-    masks = masks.to(i32)
-
+    masks = masks.to(torch.int32)
     avail_l = masks[:, 1].bool()
     avail_t = masks[:, 1 + 2 * cs].bool()
     nbl = torch.cumprod(masks[:, 1 + cs:1 + 2 * cs], dim=1).sum(1)
@@ -184,7 +191,47 @@ def cclm_from_own(m, own, lcol, tstrip, lstrip, ct, cl_, masks, ly, cs,
         return cnt, start[:, None] + j * step[:, None]
 
     cnt_t, pick_t = picks(num_t)
-    cnt_l, pick_l = picks(num_l)
+    _, pick_l = picks(num_l)
+    return avail_l, empty, cnt_t, pick_t, pick_l
+
+
+def _cclm_from_taps(ysel, csel, cnt_t, ly, ctu_size, p_ds, empty):
+    """The prediction from the picked boundary taps: ysel (B, 12, 4) luma
+    taps (rows ly-1 and ly-2 at the three downsample columns, then the
+    left columns lx-3 / lx-2 / lx-1 at two rows each), csel (B, 2, 4)
+    chroma samples (top, left), cnt_t (B,) the count taken from the top,
+    p_ds (B, cs, cs) the downsampled own luma."""
+    dev = ysel.device
+    sm_a, sc_a, sr_a, sm_b, sc_b, sr_b = (ysel[:, i] for i in range(6))
+    sel_norm = (sm_a + sm_b + 2 * sc_a + 2 * sc_b + sr_a + sr_b + 4) >> 3
+    sel_bdry = (sm_a + 2 * sc_a + sr_a + 2) >> 2
+    ctu_b = ((ly & (ctu_size - 1)) == 0)[:, None]
+    sel_y_t = torch.where(ctu_b, sel_bdry, sel_norm)
+    sel_y_l = (ysel[:, 6] + ysel[:, 7] + 2 * ysel[:, 8] + 2 * ysel[:, 9]
+               + ysel[:, 10] + ysel[:, 11] + 4) >> 3
+    sel_c_t, sel_c_l = csel[:, 0], csel[:, 1]
+    j = torch.arange(4, device=dev)[None, :]
+    from_top = j < cnt_t[:, None]
+    li = torch.clamp(j - cnt_t[:, None], 0, 3)
+    sel_y = torch.where(from_top, sel_y_t, _sel_cols(sel_y_l, li, 4))
+    sel_c = torch.where(from_top, sel_c_t, _sel_cols(sel_c_l, li, 4))
+    return _cclm_fit_predict(sel_y, sel_c, p_ds, empty)
+
+
+def cclm_from_own(m, own, lcol, tstrip, lstrip, ct, cl_, masks, ly, cs,
+                  ctu_size):
+    """CCLM prediction reading the block's OWN luma from a dense array
+    (the commit wavefront evaluates CCLM in the step that committed the
+    co-located luma); only the thin boundary strips (cclm_strips /
+    cclm_cstrips) come from the reconstruction planes. Bit-identical to
+    the spec's CCLM (intra_predictor.rs:1604-2056).
+
+    m: (B,) modes 81/82/83; own: (B, 2cs, 2cs); lcol/tstrip/lstrip/ct/cl_
+    from the strip helpers; masks: (B, 4cs+1) availability rows; ly: (B,)
+    luma y. Returns (B, cs, cs) int32."""
+    B = m.shape[0]
+    TW, LH = 4 * cs + 1, 4 * cs
+    avail_l, empty, cnt_t, pick_t, pick_l = _cclm_picks(m, masks, cs)
 
     # ---- 2x2 downsample from the dense own-luma + the left column
     own = own.reshape(B, 2 * cs, 2 * cs)
@@ -204,7 +251,6 @@ def cclm_from_own(m, own, lcol, tstrip, lstrip, ct, cl_, masks, ly, cs,
     px_r = px_c + 1
     q = pick_l
     py0 = 2 * q
-    ctu_b = ((ly & (ctu_size - 1)) == 0)[:, None]
     ystrip = torch.cat(
         [tstrip[:, 1, :], tstrip[:, 0, :],
          lstrip[:, :, 0], lstrip[:, :, 1], lstrip[:, :, 2]], dim=1)
@@ -217,22 +263,134 @@ def cclm_from_own(m, own, lcol, tstrip, lstrip, ct, cl_, masks, ly, cs,
          py0 + o_c2, py0 + 1 + o_c2,
          py0 + o_c1, py0 + 1 + o_c1], dim=1)
     ysel = _sel_cols(ystrip, yidx, 2 * TW + 3 * LH).reshape(B, 12, 4)
-    sm_a, sc_a, sr_a, sm_b, sc_b, sr_b = (ysel[:, i] for i in range(6))
-    sel_norm = (sm_a + sm_b + 2 * sc_a + 2 * sc_b + sr_a + sr_b + 4) >> 3
-    sel_bdry = (sm_a + 2 * sc_a + sr_a + 2) >> 2
-    sel_y_t = torch.where(ctu_b, sel_bdry, sel_norm)
-    sel_y_l = (ysel[:, 6] + ysel[:, 7] + 2 * ysel[:, 8] + 2 * ysel[:, 9]
-               + ysel[:, 10] + ysel[:, 11] + 4) >> 3
     cstrip = torch.cat([ct, cl_], dim=1)
     cidx = torch.cat([p, q + 2 * cs], dim=1)
     csel = _sel_cols(cstrip, cidx, 4 * cs).reshape(B, 2, 4)
-    sel_c_t, sel_c_l = csel[:, 0], csel[:, 1]
+    return _cclm_from_taps(ysel, csel, cnt_t, ly, ctu_size, p_ds, empty)
 
-    from_top = j < cnt_t[:, None]
-    li = torch.clamp(j - cnt_t[:, None], 0, 3)
-    sel_y = torch.where(from_top, sel_y_t, _sel_cols(sel_y_l, li, 4))
-    sel_c = torch.where(from_top, sel_c_t, _sel_cols(sel_c_l, li, 4))
-    return _cclm_fit_predict(sel_y, sel_c, p_ds, empty)
+
+def cclm_luma_patch(luma_flat, lx, ly, cs, H, W, bfl):
+    """ONE gather per block: the (4cs+2, 4cs+3) luma window at rows
+    ly-2 .. ly+4cs-1, cols lx-3 .. lx+4cs-1 (edge-clipped like the spec's
+    clamped reads); every luma sample CCLM reads lies inside it.
+    luma_flat: (F, H*W); bfl: (B,) frame of each block."""
+    dev = lx.device
+    PH, PW = 4 * cs + 2, 4 * cs + 3
+    prow = torch.clamp(ly[:, None] + torch.arange(PH, device=dev)[None, :]
+                       - 2, 0, H - 1)
+    pcol = torch.clamp(lx[:, None] + torch.arange(PW, device=dev)[None, :]
+                       - 3, 0, W - 1)
+    pidx = prow[:, :, None] * W + pcol[:, None, :]
+    return luma_flat[bfl.long()[:, None, None], pidx.long()]   # (B, PH, PW)
+
+
+def cclm_chroma_patch(ch_flat, xs, ys, cs, hh, hw, bf):
+    """(B, 2cs+1, 2cs+1) chroma window at rows ys-1 .. ys+2cs-1, cols
+    xs-1 .. xs+2cs-1 (edge-clipped): the above row and left column CCLM
+    fits the linear model on."""
+    dev = xs.device
+    span = torch.arange(2 * cs + 1, device=dev)[None, :] - 1
+    crow = torch.clamp(ys[:, None] + span, 0, hh - 1)
+    ccol = torch.clamp(xs[:, None] + span, 0, hw - 1)
+    cidx = crow[:, :, None] * hw + ccol[:, None, :]
+    return ch_flat[bf.long()[:, None, None], cidx.long()]      # (B, CH, CW)
+
+
+def predict_cclm_impl(mode, luma, chroma, xs, ys, cs, masks, ctu_size=32,
+                      bf=None, bf_luma=None):
+    """Batched bit-exact CCLM prediction (the twin of
+    np_ops.predict_cclm_np; intra_predictor.rs:1604-2056). cs >= 4.
+
+    luma / chroma: (recon) planes as tensors, (H, W) / (h, w) or stacked
+    per frame ((F, H, W) / (F, h, w)) with `bf` giving each block's frame
+    (`bf_luma` the luma frame where the chroma stack differs); (xs, ys):
+    chroma block positions; masks: (B, 4cs+1) availability rows
+    (refs.avail_masks). mode: one mode for all blocks or (B,) modes.
+    Position and mask arrays may be numpy; they go to luma's device.
+    Returns (B, cs, cs) int32."""
+    assert cs >= 4
+    dev = luma.device
+    luma = luma.to(torch.int32)
+    chroma = chroma.to(torch.int32)
+    if luma.dim() == 2:
+        luma = luma[None]
+        chroma = chroma[None]
+    H, W = luma.shape[1:]
+    hh, hw = chroma.shape[1:]
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a) if not isinstance(
+            a, torch.Tensor) else a, device=dev).to(torch.int32)
+    xs, ys, masks = i32(xs), i32(ys), i32(masks)
+    B = xs.shape[0]
+    bf = torch.zeros(B, dtype=torch.int32, device=dev) if bf is None \
+        else i32(bf)
+    bfl = bf if bf_luma is None else i32(bf_luma)
+    m = torch.broadcast_to(i32(mode), (B,))
+    LP = cclm_luma_patch(luma.reshape(luma.shape[0], H * W), 2 * xs, 2 * ys,
+                         cs, H, W, bfl)
+    CP = cclm_chroma_patch(chroma.reshape(chroma.shape[0], hh * hw), xs, ys,
+                           cs, hh, hw, bf)
+    return cclm_from_patches(m, LP, CP, masks, 2 * ys, cs, ctu_size)
+
+
+# the JAX package jits predict_cclm_impl under this name; eager here
+predict_cclm = predict_cclm_impl
+
+
+def cclm_from_patches(m, LP, CP, masks, ly, cs, ctu_size):
+    """CCLM prediction from pre-gathered patches. m: (B,) modes (81/82/83);
+    LP: (B, 4cs+2, 4cs+3) luma patches; CP: (B, 2cs+1, 2cs+1) chroma
+    patches; masks: (B, 4cs+1); ly: (B,) luma y of each block."""
+    B = m.shape[0]
+    PH, PW = 4 * cs + 2, 4 * cs + 3
+    avail_l, empty, cnt_t, pick_t, pick_l = _cclm_picks(m, masks, cs)
+
+    # ---- 2x2 downsample grid from static patch slices (plane row ly+r is
+    # patch row r+2; plane col lx+c is patch col c+3)
+    r0 = LP[:, 2:2 + 2 * cs:2, :]                        # even luma rows
+    r1 = LP[:, 3:3 + 2 * cs:2, :]                        # odd luma rows
+
+    def cols(rr, base):
+        return rr[:, :, base:base + 2 * cs:2]            # (B, cs, cs)
+
+    xm_a = cols(r0, 2) + cols(r1, 2)
+    # first downsample column: lx-1 when the left edge exists, else lx
+    xm_edge = r0[:, :, 2] + r1[:, :, 2]
+    xm_self = r0[:, :, 3] + r1[:, :, 3]
+    first0 = torch.arange(cs, device=LP.device)[None, None, :] == 0
+    xm_s = torch.where(avail_l[:, None, None], xm_edge[:, :, None],
+                       xm_self[:, :, None])
+    xm_sum = torch.where(first0, xm_s, xm_a)
+    xc_sum = cols(r0, 3) + cols(r1, 3)
+    xr_sum = cols(r0, 4) + cols(r1, 4)
+    p_ds = (xm_sum + 2 * xc_sum + xr_sum + 4) >> 3
+
+    # ---- boundary samples from one concatenated strip per plane:
+    #   luma strip  = [row ly-1 | row ly-2 | col lx-3 | col lx-2 | col lx-1]
+    #   chroma strip = [row ys-1 | col xs-1]
+    p = pick_t
+    px_c = 3 + 2 * p
+    px_m = torch.where((p > 0) | avail_l[:, None], px_c - 1, 3)
+    px_r = px_c + 1
+    q = pick_l
+    py0 = 2 + 2 * q
+    ystrip = torch.cat(
+        [LP[:, 1, :], LP[:, 0, :], LP[:, :, 0], LP[:, :, 1], LP[:, :, 2]],
+        dim=1)
+    o_rb, o_c3, o_c2, o_c1 = PW, 2 * PW, 2 * PW + PH, 2 * PW + 2 * PH
+    yidx = torch.cat(
+        [px_m, px_c, px_r,                                  # ra (ly-1)
+         px_m + o_rb, px_c + o_rb, px_r + o_rb,             # rb (ly-2)
+         py0 + o_c3, py0 + 1 + o_c3,
+         py0 + o_c2, py0 + 1 + o_c2,
+         py0 + o_c1, py0 + 1 + o_c1], dim=1)                # (B, 48)
+    ysel = _sel_cols(ystrip, yidx, 2 * PW + 3 * PH).reshape(B, 12, 4)
+    CW_ = 2 * cs + 1
+    cstrip = torch.cat([CP[:, 0, :], CP[:, :, 0]], dim=1)
+    cidx = torch.cat([1 + p, 1 + q + CW_], dim=1)           # (B, 8)
+    csel = _sel_cols(cstrip, cidx, 2 * CW_).reshape(B, 2, 4)
+    return _cclm_from_taps(ysel, csel, cnt_t, ly, ctu_size, p_ds, empty)
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,8 +21,11 @@ one scatter share a target. A row that must not write (a phantom, or a
 phantom that lost) rewrites the values it reads back, so every scatter is
 a deterministic index_put_. Nothing in the step loop waits for the
 device; the small per-step outputs and the planes are fetched once after
-the loop. The apply-decisions prototype `commit_frame_device` of the JAX
-module is not ported (ROADMAP.md queue 1 item 2).
+the loop.
+
+The module also holds the JAX module's apply-decisions prototype,
+`commit_frame_device` (rd_commit=False semantics, the greedy quantizer:
+kernel K2 once per rank group and component), at the end.
 """
 import functools
 from typing import NamedTuple
@@ -89,16 +92,27 @@ def _cell_table(W, H, s, log2_ctu):
     return rows.reshape(len(xs), -1).astype(np.int32)
 
 
+def mpm_key(rm, dep):
+    """The rate-model constants the mode-bit tables depend on: (po, npo,
+    mio, mip, mrm, mro, mrp)."""
+    return (rm.pick('planar_offset', dep, True),
+            rm.pick('non_planar_offset', dep, True),
+            rm.pick('mpm_idx_offset', dep, True), rm.mpm_idx_pow,
+            rm.pick('mpm_remainder_mult', dep, True),
+            rm.pick('mpm_remainder_offset', dep, True),
+            rm.mpm_remainder_pow)
+
+
 @functools.lru_cache(maxsize=None)
-def _mpm_bits16384(key_consts):
-    """(67, 67, 67) f32 table of trunc(mode_bits * 16384) for coding `mode`
-    given (left, above) neighbour modes — computed in float64 exactly as
-    the native committer (RdCommitter::luma_mode_bits) so the int64
-    truncation matches bit-for-bit (values < 2^24, exact in f32)."""
+def _mpm_bits_f64(key_consts):
+    """(67, 67, 67) f64 mode-bit estimate for coding `mode` given (left,
+    above) neighbour modes: the rate model's formula (the native
+    committer's RdCommitter::luma_mode_bits, the scalar encoder's
+    _mode_bits) closed over all (l, a) pairs. key_consts: mpm_key."""
     (po, npo, mio, mip, mrm, mro, mrp) = key_consts
     from ..entropy.syntax import derive_mpm_list
     modes = np.arange(67, dtype=np.float64)
-    T = np.empty((67, 67, 67), dtype=np.float32)
+    T = np.empty((67, 67, 67), dtype=np.float64)
     for l in range(67):
         for a in range(67):
             cand = derive_mpm_list(l, a)
@@ -108,8 +122,22 @@ def _mpm_bits16384(key_consts):
             for idx, m in reversed(list(enumerate(cand))):
                 row[m] = npo + (idx + mio) ** mip
             row[0] = po
-            T[l, a] = np.trunc(row * 16384.0)
+            T[l, a] = row
     return T
+
+
+@functools.lru_cache(maxsize=None)
+def mpm_bits_f32(key_consts):
+    """_mpm_bits_f64 rounded to f32: the host selection's table."""
+    return _mpm_bits_f64(key_consts).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _mpm_bits16384(key_consts):
+    """(67, 67, 67) f32 table of trunc(mode_bits * 16384), truncated in
+    f64 as the native committer does, so the int64 truncation matches
+    bit for bit (values < 2^24, exact in f32)."""
+    return np.trunc(_mpm_bits_f64(key_consts) * 16384.0).astype(np.float32)
 
 
 SEG = 64          # ranks per scan segment
@@ -442,13 +470,7 @@ class RdScan:
                     transform_skip=False)
                 self.ls_tab[c, lg - 2] = qpar.ls
                 self.bd_tab[c, lg - 2] = qpar.bd_shift
-        key = (rm.pick('planar_offset', dep, True),
-               rm.pick('non_planar_offset', dep, True),
-               rm.pick('mpm_idx_offset', dep, True), rm.mpm_idx_pow,
-               rm.pick('mpm_remainder_mult', dep, True),
-               rm.pick('mpm_remainder_offset', dep, True),
-               rm.mpm_remainder_pow)
-        self.T = _dev_table(key, dev)
+        self.T = _dev_table(mpm_key(rm, dep), dev)
         lam = np.float32(2.0 ** (qp / rm.pick('qp_div', dep, True))
                          * rm.pick('lambda_mul', dep, True))
         co = rm.pick('cclm_offset', dep, True)
@@ -918,3 +940,228 @@ def _extract_coeffs(cfg, seg, cyp, ccbp, ccrp, use_map):
             for i, cu in enumerate(live):
                 cu.coeffs[1] = qcb[i]
                 cu.coeffs[2] = qcr[i]
+
+
+# ========================================================= apply-decisions
+# The prototype: decided CU modes applied in dependency-rank order, every
+# numeric stage on the device. The host orders the work (rank_groups) and
+# plans every step's rows up front (plan_steps); the device runs one step
+# per (rank, size, tree, component) group at the bucket-padded batch
+# _buckets(B): substituted references from the evolving reconstruction,
+# [1 2 1] filter, prediction (or CCLM), DCT-II, greedy dep-quant (K2),
+# dequantization, inverse DCT and the scatter. Nothing in the step loop
+# waits for the device; the planes and levels are fetched once.
+
+
+def rank_groups(cus, W, H):
+    """Dependency ranks over 4x4 cells (WavefrontSearch._commit's), then
+    the CUs grouped by (rank, log2, tree) in sorted key order, each group
+    in rank-stable CU order: [((rank, log2, tree), [cu, ...]), ...]."""
+    rank_grid = np.zeros((H // 4, W // 4), dtype=np.int32)
+    ranks = np.zeros(len(cus), dtype=np.int32)
+    for i, cu in enumerate(cus):
+        s = 1 << cu.log2
+        x4, y4, n4 = cu.x // 4, cu.y // 4, max(s // 4, 1)
+        r = 0
+        if cu.x > 0:
+            col = rank_grid[max(y4 - 1, 0):min(y4 + 2 * n4, H // 4), x4 - 1]
+            if col.size:
+                r = max(r, int(col.max()))
+        if cu.y > 0:
+            row = rank_grid[y4 - 1, max(x4 - 1, 0):min(x4 + 2 * n4, W // 4)]
+            if row.size:
+                r = max(r, int(row.max()))
+        # own region: nonzero only for the SCIPU chroma CU (its luma
+        # children share these cells) — CCLM reads their co-located luma
+        # reconstruction, so it must commit after them
+        own = rank_grid[y4:y4 + n4, x4:x4 + n4]
+        if own.size:
+            r = max(r, int(own.max()))
+        ranks[i] = r + 1
+        # max, not assignment: the SCIPU chroma CU shares cells with its
+        # luma children and must not lower their recorded ranks
+        region = rank_grid[y4:y4 + n4, x4:x4 + n4]
+        rank_grid[y4:y4 + n4, x4:x4 + n4] = np.maximum(region, ranks[i])
+    order = np.argsort(ranks, kind='stable')
+    groups = {}
+    for i in order:
+        cu = cus[i]
+        groups.setdefault((int(ranks[i]), cu.log2, cu.tree), []).append(cu)
+    return [(k, groups[k]) for k in sorted(groups)]
+
+
+def _buckets(n):
+    """The batch a group of n CUs is padded to: the next power of two."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
+
+
+class Step(NamedTuple):
+    """One component of one rank group: its CUs (B of them), the padded
+    batch Bp, the component and log2 size, and the host arrays the
+    device reads: idx (Bp,) block indices on the size's grid (the pads
+    repeat the last), modes (Bp,), and the CCLM / other rows of a mixed
+    group (None when the group has no CCLM row)."""
+    cus: list
+    B: int
+    Bp: int
+    c_idx: int
+    log2: int
+    idx: np.ndarray
+    modes: np.ndarray
+    cclm: np.ndarray
+    norm: np.ndarray
+
+
+def plan_steps(cfg, cus):
+    """The prototype's schedule: a Step for every non-empty component
+    group of rank_groups, in commit order."""
+    W, H = cfg.width, cfg.height
+    steps = []
+    for (rank, log2, tree), batch in rank_groups(cus, W, H):
+        comps = ([(0, log2)] if tree in ('S', 'L') else []) + \
+            ([(1, log2 - 1), (2, log2 - 1)] if tree in ('S', 'C') else [])
+        for c_idx, lg in comps:
+            s = 1 << lg
+            sh = 0 if c_idx == 0 else 1
+            n_bw = (W >> sh) // s
+            B = len(batch)
+            Bp = _buckets(B)
+            idx = np.array([((cu.y >> sh) // s) * n_bw + ((cu.x >> sh) // s)
+                            for cu in batch], dtype=np.int64)
+            modes = np.array([cu.luma_mode if c_idx == 0 else cu.chroma_mode
+                              for cu in batch], dtype=np.int64)
+            idx = np.concatenate([idx, np.repeat(idx[-1:], Bp - B)])
+            modes = np.concatenate([modes, np.repeat(modes[-1:], Bp - B)])
+            is_cclm = modes >= 81
+            cclm = norm = None
+            if is_cclm.any():
+                cclm, norm = np.where(is_cclm)[0], np.where(~is_cclm)[0]
+            steps.append(Step(batch, B, Bp, c_idx, lg, idx, modes, cclm,
+                              norm))
+    return steps
+
+
+def _step_pred(s, c_idx, recon_flat, src, fill, pi, ni, keep, modes):
+    """Gather substituted refs from the reconstruction, [1 2 1]-filter,
+    and predict one mode per block. recon_flat has one trailing pad slot;
+    src never points at it."""
+    if fill.dim() == 1:
+        fill = fill[:, None]
+    u = torch.where(fill, 128, recon_flat[src])             # (B, L)
+    uf = torch.where(keep[None, :], u,
+                     (u[:, pi] + 2 * u + u[:, ni] + 2) >> 2)
+    v = torch.cat([u, uf], dim=1)
+    return intra_pred.predict_modes(v, modes, s, 0 if c_idx == 0 else 1)
+
+
+def _step_residual(pred, orig, log2, ls, bd_shift, lam_dq, lv):
+    """DCT -> greedy dep-quant (K2 on the card) -> dequant -> inverse ->
+    reconstruct. Returns (rec (B, s, s) int32, q (B, s, s) int16)."""
+    s = 1 << log2
+    pred = pred.reshape(-1, s, s).to(torch.int32)
+    t = transforms.forward_impl(orig.reshape(-1, s, s) - pred)
+    q, _ = kq.greedy_depquant(t, ls, bd_shift, lam_dq, log2, lv)
+    d = kq.dequantize(q, ls, bd_shift)
+    rec = torch.clamp(pred + transforms.inverse_impl(d), 0, 255)
+    return rec, q
+
+
+def commit_frame_device(cfg, orig_planes, cus, rate_model=None,
+                        device=None):
+    """Apply decided CU modes on the device in dependency-rank order.
+
+    orig_planes: (Y, Cb, Cr) of one frame; cus: its CuDecisions in coding
+    order (WavefrontSearch._collect_cus). device: None = 'cuda' (raises
+    without a card). Returns the recon planes [Y, Cb, Cr] as int32 numpy
+    and writes each CU's levels into cu.coeffs. Bit-exact against
+    WavefrontSearch._commit with trellis_commit=False. On the card every
+    step launches K2 once, at its padded batch."""
+    from .wavefront import resolve_device
+    dev = resolve_device(device)
+    W, H = cfg.width, cfg.height
+    rm = rate_model or cfg.rate_model
+    qp = cfg.qp
+    qp_c = quant.chroma_qp_from_luma(qp)
+    steps = plan_steps(cfg, cus)
+    # every table, parameter and host array the steps read goes up once;
+    # the steps index views of it (a blocking upload per step would wait
+    # for the device each time)
+    qtab = {}
+    for c in (0, 1):
+        for lg in (2, 3, 4, 5):
+            qpar = quant.derive_quant_params(
+                qp if c == 0 else qp_c, lg, lg,
+                dep_quant=cfg.dep_quant_enabled, transform_skip=False)
+            qtab[(c, lg)] = (qpar.ls, qpar.bd_shift)
+    keys = sorted(qtab)
+    host = [np.asarray([v for k in keys for v in qtab[k]], np.int64)]
+    for st in steps:
+        host += [st.idx, st.modes] + ([st.cclm, st.norm]
+                                      if st.cclm is not None else [])
+    pool = _upload(np.concatenate(host), dev)
+    views, o = [], 0
+    for a in host:
+        views.append(pool[o:o + len(a)])
+        o += len(a)
+    qv = views[0].to(torch.int32)
+    qdev = {k: (qv[2 * i:2 * i + 1], qv[2 * i + 1:2 * i + 2])
+            for i, k in enumerate(keys)}
+    lam_dq = _upload(kq.lam_dq_table(rm, qp, trellis=False), dev)
+    lv = _upload(kq.lv_table_device(rm, cfg.dep_quant_enabled, False), dev)
+    orig = [_upload(np.asarray(p, np.int32).reshape(-1), dev)
+            for p in orig_planes]
+    # recon planes, flat with one trailing pad slot: the padded rows of a
+    # step scatter there, and nothing reads it
+    pads = (H * W, (H // 2) * (W // 2), (H // 2) * (W // 2))
+    planes = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
+              for n in pads]
+    qs = []
+    v = 1
+    for st in steps:
+        idx, modes = views[v], views[v + 1]
+        v += 2
+        s = 1 << st.log2
+        sh = 0 if st.c_idx == 0 else 1
+        g = _geo_dev(W, H, s, st.c_idx, cfg.log2_ctu_size, dev)
+        rows = g['scat'][idx]                               # (Bp, s*s)
+        if st.cclm is None:
+            pred = _step_pred(s, st.c_idx, planes[st.c_idx], g['src'][idx],
+                              g['fill'][idx], g['pi'], g['ni'], g['keep'],
+                              modes)
+        else:
+            cc, nm = views[v], views[v + 1]
+            v += 2
+            pred = torch.zeros((st.Bp, s * s), dtype=torch.int32,
+                               device=dev)
+            ic = idx[cc]
+            pred[cc] = intra_pred.predict_cclm(
+                modes[cc], planes[0][:-1].reshape(H, W),
+                planes[st.c_idx][:-1].reshape(H >> sh, W >> sh),
+                g['xs'][ic], g['ys'][ic], s, g['masks'][ic],
+                1 << cfg.log2_ctu_size).reshape(-1, s * s)
+            if len(st.norm):
+                ino = idx[nm]
+                pred[nm] = _step_pred(s, st.c_idx, planes[st.c_idx],
+                                      g['src'][ino], g['fill'][ino],
+                                      g['pi'], g['ni'], g['keep'], modes[nm])
+        ls, bd = qdev[(min(st.c_idx, 1), st.log2)]
+        rec, q = _step_residual(pred, orig[st.c_idx][rows], st.log2, ls, bd,
+                                lam_dq, lv)
+        # padded rows write the trailing pad slot
+        rows[st.B:] = pads[st.c_idx]
+        planes[st.c_idx][rows.reshape(-1)] = rec.reshape(-1)
+        qs.append(q[:st.B].reshape(-1))
+    sizes = list(pads) + [int(q.numel()) for q in qs]
+    flat = torch.cat([p[:-1] for p in planes]
+                     + [q.to(torch.int32) for q in qs]).cpu().numpy()
+    parts = np.split(flat, np.cumsum(sizes)[:-1])
+    for st, qh in zip(steps, parts[3:]):
+        s = 1 << st.log2
+        qh = qh.astype(np.int16).reshape(st.B, s, s)
+        for i, cu in enumerate(st.cus):
+            cu.coeffs[st.c_idx] = qh[i]
+    return [parts[0].reshape(H, W), parts[1].reshape(H // 2, W // 2),
+            parts[2].reshape(H // 2, W // 2)]

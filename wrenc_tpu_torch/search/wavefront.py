@@ -18,13 +18,15 @@ WRENC_CHROMA_STAGE_A or `chroma_stage_a` picks either.
 
 Stage B — on the host, in the native C++ library: the bottom-up QT
 decision, tree assembly, and the RD commit against the true
-reconstruction in a worker thread. Under `commit_engine='device'` the
-commit runs on the device instead (search/device_commit.py), from planes
-uploaded once per chunk.
+reconstruction in a worker thread (`trellis_commit=False`: the greedy
+quantizer; `rd_commit=False`: stage A's decisions applied as they are).
+Under `commit_engine='device'` the commit runs on the device instead
+(search/device_commit.py), from planes uploaded once per chunk. Under
+`qp_delta_pattern` (per-QG QP) every CU carries its CTU's QP and the
+NumPy rank-wavefront commit (`_commit`) runs. WRENC_STAGE_A_SELECT=host
+moves the luma winner selection to the host (`_select_modes`, numpy).
 
-Paths of the JAX module outside this slice (the greedy and non-RD
-commits, the sharded mesh, per-QG QP deltas and host-side luma
-selection) raise NotImplementedError.
+The sharded stage A of the JAX module (mesh=) raises NotImplementedError.
 """
 import functools
 import os
@@ -35,10 +37,11 @@ import torch
 
 from ..entropy import native
 from ..entropy.structure import CtNode, CuDecision
-from ..kernels import intra_pred, quantize as kq, refs, transforms
+from ..kernels import intra_pred, np_ops, quantize as kq, refs, transforms
 from ..kernels import trellis as ktr
 from ..spec import quant
-from .device_commit import commit_frames_device_rd
+from .device_commit import (commit_frames_device_rd, mpm_bits_f32,
+                            mpm_key, rank_groups)
 
 
 def _not_ported(what, item=None):
@@ -64,19 +67,21 @@ class WavefrontSearch:
         'cuda' (raises when no card is present). The other options are as
         in the JAX package: commit_engine 'native' (the threaded C++ RD
         tree commit, default; env WRENC_COMMIT_ENGINE) or 'device' (the
-        rank wavefront of search/device_commit.py; it runs only with
-        dep-quant and the rate model's commit_rank_full,
-        commit_rank_trellis and commit_chroma_redecide on, else the
-        native engine runs); chroma_stage_a 'device' or 'native' (env
-        WRENC_CHROMA_STAGE_A; default 'device' under the device engine or
-        at >= 0.5 Mpx). Only the trellis RD commit on a single device is
+        rank wavefront of search/device_commit.py; it runs only with the
+        RD trellis commit, dep-quant and the rate model's
+        commit_rank_full, commit_rank_trellis and commit_chroma_redecide
+        on, else the native engine runs); chroma_stage_a 'device' or
+        'native' (env WRENC_CHROMA_STAGE_A; default 'device' under the
+        device engine or at >= 0.5 Mpx); trellis_commit False quantizes
+        the commit greedily; rd_commit False applies stage A's decisions
+        without re-deciding them. Env WRENC_STAGE_A_SELECT=host selects
+        the luma winners on the host. The sharded stage A (mesh) is not
         ported."""
         cfg.validate()
-        if not (trellis_commit and rd_commit):
-            _not_ported("the greedy / non-RD commit (trellis_commit=False, "
-                        "rd_commit=False)", 2)
         if mesh is not None:
             _not_ported("the sharded stage A (mesh=)", 5)
+        self.trellis_commit = trellis_commit
+        self.rd_commit = rd_commit
         self.commit_engine = commit_engine or os.environ.get(
             'WRENC_COMMIT_ENGINE', 'native')
         if self.commit_engine not in ('native', 'device'):
@@ -84,14 +89,13 @@ class WavefrontSearch:
                              "'native' or 'device'")
         rm = cfg.rate_model
         self._device_commit = bool(
-            self.commit_engine == 'device' and cfg.dep_quant_enabled
+            self.commit_engine == 'device' and rd_commit and trellis_commit
+            and cfg.dep_quant_enabled
             and getattr(rm, 'commit_rank_full', 0)
             and getattr(rm, 'commit_rank_trellis', 0)
             and getattr(rm, 'commit_chroma_redecide', 0))
-        if tuple(getattr(cfg, 'qp_delta_pattern', ()) or ()):
-            _not_ported("qp_delta_pattern (per-QG QP)", 2)
-        if os.environ.get('WRENC_STAGE_A_SELECT', 'device') != 'device':
-            _not_ported("host-side luma selection (WRENC_STAGE_A_SELECT)")
+        self._select_device = os.environ.get(
+            'WRENC_STAGE_A_SELECT', 'device') == 'device'
         auto_chroma = ('device' if (self._device_commit or
                                     cfg.width * cfg.height >= 1 << 19)
                        else 'native')
@@ -185,8 +189,10 @@ class WavefrontSearch:
         is dispatched BEFORE the host passes of chunk k run (dispatch does
         not synchronize), and the commit of chunk k runs in a worker
         thread (the native call releases the GIL) under chunk k+1's decide
-        phase. The device commit engine commits several chunks in one scan
-        (_commit_group_frames). Returns [(trees, recon), ...]."""
+        phase; the per-QG commit (qp_delta_pattern) reads instance state,
+        so it runs in turn instead. The device commit engine commits
+        several chunks in one scan (_commit_group_frames). Returns
+        [(trees, recon), ...]."""
         from concurrent.futures import ThreadPoolExecutor
         self.phase_times = {}
         out = []
@@ -195,6 +201,9 @@ class WavefrontSearch:
         group_n = 1
         if self._device_commit and max_b < self._commit_group_frames():
             group_n = max(1, self._commit_group_frames() // max_b)
+        # the per-QG QP commit runs frame by frame on the host, in turn
+        overlap = len(chunks) > 1 and not tuple(
+            getattr(self.cfg, 'qp_delta_pattern', ()) or ())
         pending = self._dispatch_stage_a(chunks[0])
         with ThreadPoolExecutor(max_workers=1) as pool:
             prev = None
@@ -208,14 +217,21 @@ class WavefrontSearch:
                 gd.append((devp, len(batch)))
                 pending = nxt
                 if len(chunks) == k + 1 or (k + 1) % group_n == 0:
-                    if prev is not None:
-                        out.extend(self._join_commit(prev))
-                    timing = {}
-                    fut = pool.submit(self._commit_timed, gb, gt, timing,
-                                      _merge_devp(gd))
-                    prev = (fut, gt, timing)
+                    if not overlap:
+                        t0 = time.perf_counter()
+                        recons = self._commit_all(gt, gb, _merge_devp(gd))
+                        self._phase('host_commit', time.perf_counter() - t0)
+                        out.extend(zip(gt, recons))
+                    else:
+                        if prev is not None:
+                            out.extend(self._join_commit(prev))
+                        timing = {}
+                        fut = pool.submit(self._commit_timed, gb, gt, timing,
+                                          _merge_devp(gd))
+                        prev = (fut, gt, timing)
                     gb, gt, gd = [], [], []
-            out.extend(self._join_commit(prev))
+            if prev is not None:
+                out.extend(self._join_commit(prev))
         return out
 
     def _commit_timed(self, batch, all_trees, timing, dev_planes=None):
@@ -327,7 +343,7 @@ class WavefrontSearch:
         res = fused_luma_stage_a(
             planes, cfg.width, cfg.height, cfg.log2_ctu_size, tuple(sizes),
             a['K'], a['trellis'], a['ls'], a['bd'], a['lam_dq'], a['lv'],
-            a['lam'], a['mats'], a['seltabs'])
+            a['lam'], a['mats'], a['seltabs'], sel=self._select_device)
         self._phase('device_dispatch', time.perf_counter() - t0)
         return batch, sizes, res, dev_planes
 
@@ -355,11 +371,17 @@ class WavefrontSearch:
         self._phase('device_stage_a', time.perf_counter() - t0)
         t0 = time.perf_counter()
         for s in sizes:
-            rk, cost, c2 = res[s]
-            luma_mode_b[s] = rk[:F, :, 0].astype(np.int64)
-            luma_cost_b[s] = cost[:F]
-            luma_cands_b[s] = rk[:F].astype(np.int32)
-            luma_cand_cost_b[s] = c2[:F]
+            if len(res[s]) == 3:           # device-side winner selection
+                rk, cost, c2 = res[s]
+                luma_mode_b[s] = rk[:F, :, 0].astype(np.int64)
+                luma_cost_b[s] = cost[:F]
+                luma_cands_b[s] = rk[:F].astype(np.int32)
+                luma_cand_cost_b[s] = c2[:F]
+            else:
+                cands, base = res[s]
+                (luma_mode_b[s], luma_cost_b[s], luma_cands_b[s],
+                 luma_cand_cost_b[s]) = self._select_modes(s, cands[:F],
+                                                           base[:F])
         self._phase('host_select', time.perf_counter() - t0)
         t0 = time.perf_counter()
         chroma_cache = {}
@@ -386,10 +408,32 @@ class WavefrontSearch:
 
     def _commit_all(self, all_trees, batch, dev_planes=None):
         """Commit every frame's decisions against true reconstruction: in
-        the native C++ engine (coding-order walk, threaded across frames)
-        or, under commit_engine='device', in the device rank wavefront.
-        Runs in a worker thread (see encode_frames): touches only
-        `batch`/`all_trees`, never chunk-coupled instance state."""
+        the native C++ engine (coding-order walk, threaded across frames;
+        the RD tree commit, or under rd_commit=False the plain commit of
+        the decided CUs), under commit_engine='device' in the device rank
+        wavefront, and under qp_delta_pattern in the NumPy rank wavefront
+        (`_commit`). The port's native loader raises where the JAX search
+        would fall back to the NumPy commit. Runs in a worker thread when
+        it overlaps the next chunk (see encode_frames): the native and
+        device branches touch only `batch`/`all_trees`, never
+        chunk-coupled instance state."""
+        cfg = self.cfg
+        pat = tuple(getattr(cfg, 'qp_delta_pattern', ()) or ())
+        if pat:
+            # per-QG QP mode: tag every CU with its CTU's target QpY and
+            # commit on the NumPy path (per-CU qpar sub-batching)
+            n_cols = cfg.width >> cfg.log2_ctu_size
+            for trees in all_trees:
+                for cu in self._collect_cus(trees):
+                    ci = ((cu.y >> cfg.log2_ctu_size) * n_cols
+                          + (cu.x >> cfg.log2_ctu_size))
+                    cu.qp_y = int(np.clip(cfg.qp + pat[ci % len(pat)],
+                                          0, 63))
+            recons = []
+            for fi, trees in enumerate(all_trees):
+                self.orig = batch[fi]
+                recons.append(self._commit(trees))
+            return recons
         if self._device_commit:
             return commit_frames_device_rd(self.cfg, batch, all_trees,
                                            dev_planes)
@@ -400,21 +444,29 @@ class WavefrontSearch:
                 qpar = self.qpar[(c, log2)]
                 ls_tab[c, log2 - 2] = qpar.ls
                 bd_tab[c, log2 - 2] = qpar.bd_shift
-        rm, dep = self.rm, self.cfg.dep_quant_enabled
-        i = np.arange(1024, dtype=np.float64)
-        lv64 = ((i + rm.pick('lv_offset', dep, True))
-                ** rm.pick('lv_pow', dep, True)
-                * 16384.0).astype(np.int64)
-        return native.commit_frames_tree_native(
-            self.cfg, batch, all_trees, ls_tab, bd_tab, self.lam_dq_trellis,
-            True, lv64)
+        lam_dq = (self.lam_dq_trellis if self.trellis_commit
+                  else self.lam_dq_greedy)
+        if self.rd_commit:
+            rm, dep = self.rm, self.cfg.dep_quant_enabled
+            i = np.arange(1024, dtype=np.float64)
+            lv64 = ((i + rm.pick('lv_offset', dep, True))
+                    ** rm.pick('lv_pow', dep, True)
+                    * 16384.0).astype(np.int64)
+            return native.commit_frames_tree_native(
+                self.cfg, batch, all_trees, ls_tab, bd_tab, lam_dq,
+                self.trellis_commit, lv64)
+        cu_lists = [self._collect_cus(trees) for trees in all_trees]
+        return native.commit_frames_native(
+            self.cfg, batch, cu_lists, ls_tab, bd_tab, lam_dq,
+            self.trellis_commit)
 
     def _decide_and_commit(self, luma_mode, luma_cost, sizes, fi,
                            luma_mode_b, chroma_cache):
         cfg = self.cfg
         W, H = cfg.width, cfg.height
         dep = cfg.dep_quant_enabled
-        self._prep_cand_matrices(sizes)
+        if self.rd_commit:
+            self._prep_cand_matrices(sizes)
 
         # chroma costs with derived modes (batched across frames, cached)
         hb = self.rm.pick('header_bits', dep, True)
@@ -427,7 +479,7 @@ class WavefrontSearch:
         cost = None
         split = {}
         refine = {}
-        margin = self._refine_margin
+        margin = self._refine_margin if self.rd_commit else 0.0
         self.cclm_choice = {}
         self.scipu_choice = None
         for s in sizes:
@@ -483,6 +535,49 @@ class WavefrontSearch:
         if self.scipu_choice is not None:
             self.scipu_choice = np.asarray(self.scipu_choice).tolist()
         return self._assemble_trees()
+
+    def _select_modes(self, s, cands, base):
+        """Pick the winning luma mode per block from stage A's candidates
+        on the host (WRENC_STAGE_A_SELECT=host), in numpy: the JAX
+        search's arithmetic and dtypes, so the same picks and the same
+        np.argsort tie order.
+
+        base is ssd + lam*rate (no mode bits). After a provisional pick
+        with the static expectation, each block's MPM list is approximated
+        from its left / above same-size neighbours' picks and the
+        candidates re-ranked (two Jacobi iterations). The returned cost
+        INCLUDES the mode-bit term once."""
+        F, N, K = cands.shape
+        cfg = self.cfg
+        n_bw = cfg.width // s
+        n_bh = cfg.height // s
+        sc = self.lam * self.mode_bits_scale
+        bits = self._mode_bits[cands]
+        total = base + sc * bits
+        best = np.argmin(total, axis=2)
+        mode = np.take_along_axis(cands, best[..., None], 2)[..., 0]
+        T = mpm_bits_f32(mpm_key(self.rm, cfg.dep_quant_enabled))
+        ctu = cfg.ctu_size
+        top_rows = (np.arange(n_bh) * s) % ctu == 0
+        for _ in range(2):
+            g = mode.reshape(F, n_bh, n_bw)
+            lm = np.zeros_like(g)
+            lm[:, :, 1:] = g[:, :, :-1]
+            am = np.zeros_like(g)
+            am[:, 1:, :] = g[:, :-1, :]
+            am[:, top_rows, :] = 0       # above-CTU-row not usable
+            bits = T[lm.reshape(F, N)[..., None],
+                     am.reshape(F, N)[..., None], cands]
+            total = base + sc * bits
+            best = np.argmin(total, axis=2)
+            mode = np.take_along_axis(cands, best[..., None], 2)[..., 0]
+        cost = np.take_along_axis(total, best[..., None], 2)[..., 0]
+        # candidate list for commit-time re-decision, ranked by stage-A cost
+        order = np.argsort(total, axis=2)
+        ranked = np.take_along_axis(cands, order, axis=2)
+        ranked_cost = np.take_along_axis(total, order, axis=2)
+        return (mode.astype(np.int64), cost, ranked.astype(np.int32),
+                ranked_cost)
 
     def _prefill_chroma_cache(self, cache, luma_mode_b, sizes, F):
         """All chroma stage-A costs in one native host call
@@ -640,7 +735,8 @@ class WavefrontSearch:
                 cmode = cc
         cu = CuDecision(x, y, log2, tree, luma_mode=m,
                         chroma_mode=(cmode if tree == 'S' else 0))
-        cu.cands = self.cand_mat[s][idx]   # fixed-width row, -1 padded
+        if self.rd_commit:
+            cu.cands = self.cand_mat[s][idx]   # fixed-width row, -1 padded
         return cu
 
     def _build_node(self, x, y, log2, cqt_depth, tree, mode_type):
@@ -680,6 +776,120 @@ class WavefrontSearch:
             node.cu = self._make_leaf_cu(x, y, log2, tree, s)
         return node
 
+    # ------------------------------------------------------------- commit
+    def _collect_cus(self, trees):
+        out = []
+
+        def walk(n):
+            if n.split:
+                for c in n.children:
+                    walk(c)
+            else:
+                out.append(n.cu)
+        for t in trees:
+            if t.split:
+                for c in t.children:
+                    walk(c)
+            elif t.cu is not None:
+                out.append(t.cu)
+            # SCIPU chroma node appears in children; handled by walk
+        return out
+
+    def _commit(self, trees):
+        """The NumPy rank-wavefront commit of one frame (self.orig): the
+        decided modes applied in dependency-rank order (rank_groups), each
+        (rank, size, tree) group as one batch per component."""
+        cfg = self.cfg
+        W, H = cfg.width, cfg.height
+        recon = [np.zeros((H, W), dtype=np.int32),
+                 np.zeros((H // 2, W // 2), dtype=np.int32),
+                 np.zeros((H // 2, W // 2), dtype=np.int32)]
+        for (rank, log2, tree), batch in rank_groups(
+                self._collect_cus(trees), W, H):
+            if tree in ('S', 'L'):
+                self._commit_comp(batch, 0, log2, recon)
+            if tree in ('S', 'C'):
+                self._commit_comp(batch, 1, log2 - 1, recon)
+                self._commit_comp(batch, 2, log2 - 1, recon)
+        return recon
+
+    def _commit_comp(self, batch, c_idx, log2, recon):
+        cfg = self.cfg
+        W, H = cfg.width, cfg.height
+        s = 1 << log2
+        sh = 0 if c_idx == 0 else 1
+        xs = np.array([cu.x >> sh for cu in batch], dtype=np.int64)
+        ys = np.array([cu.y >> sh for cu in batch], dtype=np.int64)
+        masks_all = refs.avail_masks(W, H, s, 0 if c_idx == 0 else 1,
+                                     cfg.log2_ctu_size)
+        n_bw = (W >> sh) // s
+        midx = (ys // s) * n_bw + (xs // s)
+        masks = masks_all[midx]
+        modes = np.array([cu.luma_mode if c_idx == 0 else cu.chroma_mode
+                          for cu in batch], dtype=np.int64)
+        is_cclm = modes >= 81
+        pred = np.zeros((len(batch), s, s), dtype=np.int32)
+        norm = np.where(~is_cclm)[0]
+        if norm.size:
+            u = refs.gather_u(recon[c_idx], xs[norm], ys[norm], s)
+            u = refs.substitute(u, masks[norm], s)
+            v = intra_pred.make_v(u, s)
+            pred[norm] = np_ops.predict_modes_np(
+                v, modes[norm], s, 0 if c_idx == 0 else 1).reshape(-1, s, s)
+        for m in (81, 82, 83):
+            sel = np.where(modes == m)[0]
+            if sel.size:
+                pred[sel] = np_ops.predict_cclm_np(
+                    m, recon[0], recon[c_idx], xs[sel], ys[sel], s,
+                    masks[sel], cfg.ctu_size)
+        org = np.stack([self.orig[c_idx][y:y + s, x:x + s]
+                        for x, y in zip(xs, ys)])
+        res = org - pred
+        t = np_ops.forward_dct2_np(res)
+        lam_dq = np.asarray(self.lam_dq_trellis if self.trellis_commit
+                            else self.lam_dq_greedy)
+        # per-CU quant params: fixed-QP uses the precomputed pair; the
+        # qp_delta_pattern mode sub-batches by each CU's target QpY
+        # (lam_dq stays at the base QP — level choice is an RD matter,
+        # conformance only needs quantize/dequantize at the signalled QP)
+        qp_cu = np.array([getattr(cu, 'qp_y', -1) if
+                          getattr(cu, 'qp_y', None) is not None else -1
+                          for cu in batch])
+        if (qp_cu >= 0).any():
+            qpars = {}
+            for uq in np.unique(qp_cu):
+                qq = cfg.qp if uq < 0 else int(uq)
+                if c_idx != 0:
+                    qq = quant.chroma_qp_from_luma(qq)
+                qpars[uq] = quant.derive_quant_params(
+                    qq, log2, log2, dep_quant=cfg.dep_quant_enabled,
+                    transform_skip=False)
+        else:
+            qpars = {-1: self.qpar[(min(c_idx, 1), log2)]}
+            qp_cu = np.full(len(batch), -1)
+        q = np.zeros_like(t)
+        d = np.zeros_like(t)
+        for uq, qpar in qpars.items():
+            sel = np.where(qp_cu == uq)[0]
+            ts = t[sel]
+            if cfg.dep_quant_enabled:
+                # the JAX search takes np_ops' quantizers when the native
+                # library is missing; the port's loader raises instead, so
+                # here they are never a second path (the tests hold the
+                # native quantizers to them)
+                fn = (native.trellis_quant_native if self.trellis_commit
+                      else native.greedy_quant_native)
+                qs = fn(ts, qpar.ls, qpar.bd_shift, lam_dq, log2)
+            else:
+                qs = np.stack([quant.quantize_rdoq_off(tt, qpar)
+                               for tt in ts])
+            q[sel] = qs
+            d[sel] = np_ops.dequantize_np(qs, qpar.ls, qpar.bd_shift)
+        r = np_ops.inverse_dct2_np(d)
+        rec = np.clip(pred + r, 0, 255)
+        for i, cu in enumerate(batch):
+            recon[c_idx][ys[i]:ys[i] + s, xs[i]:xs[i] + s] = rec[i]
+            cu.coeffs[c_idx] = q[i]
 
 def _merge_devp(gd):
     """Concatenate per-chunk device planes ((y, cb, cr) uint8, padded to
@@ -947,11 +1157,13 @@ def _ref_vectors(flat, src, fill, pi, ni, keep):
 
 
 def fused_luma_stage_a(planes, W, H, log2_ctu, sizes, K, trellis, ls, bd,
-                       lam_dq, lv, lam, mats, seltabs):
-    """The whole luma stage A for one chunk (the JAX `_fused_luma_builder`
-    run with on-device selection). planes: (F, H, W) uint8 on the device.
-    Returns {s: (ranked cands int8 (F, N, K+2), best cost f32 (F, N),
-    top-2 costs f32 (F, N, 2))}, all still on the device."""
+                       lam_dq, lv, lam, mats, seltabs, sel=True):
+    """The whole luma stage A for one chunk (the JAX `_fused_luma_builder`).
+    planes: (F, H, W) uint8 on the device. With on-device selection (sel)
+    returns {s: (ranked cands int8 (F, N, K+2), best cost f32 (F, N),
+    top-2 costs f32 (F, N, 2))}; without, {s: (cands int8 (F, N, K+2),
+    base cost f32 (F, N, K+2))} for the host's _select_modes. All still on
+    the device."""
     F = planes.shape[0]
     consts = _luma_consts(W, H, log2_ctu, sizes, planes.device)
     flat = planes.to(torch.int32).reshape(F, H * W)
@@ -965,6 +1177,9 @@ def fused_luma_stage_a(planes, W, H, log2_ctu, sizes, K, trellis, ls, bd,
         blocks = _tiles(flat, H, W, s).reshape(-1, s * s)
         cands, cost = _stage_a_select(pred, blocks, K, ls[s], bd[s], lam_dq,
                                       lv, s.bit_length() - 1, lam, trellis)
+        if not sel:
+            out[s] = (cands.reshape(F, N, -1), cost.reshape(F, N, -1))
+            continue
         out[s] = _select_modes_dev(
             cost.reshape(F, N, -1), cands.reshape(F, N, -1).long(), H // s,
             W // s, top_mask, sc, mb67, po, idx_bits, rem_bits)

@@ -1,5 +1,7 @@
 """CLI encoder of the PyTorch/CUDA port — the flags of
-wrenc_tpu.tools.encode, plus --device.
+wrenc_tpu.tools.encode, plus --device. Frame sharding (--dp above 1) is
+not ported and raises; the environment switches of the search
+(WRENC_COMMIT_ENGINE, WRENC_CHROMA_STAGE_A, WRENC_STAGE_A_SELECT) apply.
 
     python -m wrenc_tpu_torch.tools.encode -i in.yuv -o out.vvc \
         --input-size 352x288 --output-size 352x288 --num-pictures 30 \
@@ -42,7 +44,8 @@ def main(argv=None):
                     help="accepted for interface parity; stage-A chunks "
                          "follow the search's batch buckets")
     ap.add_argument("--dp", type=int, default=1,
-                    help="frame sharding over N devices (only 1 is ported)")
+                    help="frame sharding over N devices: not ported, only "
+                         "1 runs (the sharded search raises)")
     ap.add_argument("--device", default="cuda",
                     help="torch device for stage A (default: cuda)")
     args = ap.parse_args(argv)
