@@ -80,7 +80,20 @@ Run from the root of a checkout. Phases, each fatal on failure:
      rows only in the pad slot, the commit's wall time and K2's device time
      for those launches in a CUDA graph beside their bound, then K2 in both
      instantiations at every (n, padded B) it launched, exactly against
-     its plain twin with the prototype's tables.
+     its plain twin with the prototype's tables;
+ 10. the sharded stage A (WavefrontSearch(cfg, mesh=...)), cells on
+     distinct cards where there are enough, else cuda:0 repeated (logged;
+     then no scaling claim): 16 CIF frames at QP 32 on a ('frame',) mesh
+     of 2 cells and a (frame 2, row 3) mesh (3 CTU rows per band), the
+     latter also under stage_a_trellis_rd=1 and with the device commit
+     engine; card bytes == the single-device card bytes, decode ==
+     reconstruction, fps and phase times, the stage-A kernel's launches
+     counted from 0 == chunks x cells x 4 sizes; 1080p on a (1, 2) mesh:
+     one chunk's stage A == one device's exactly, a 1-frame encode ==
+     the single-device bytes;
+ 11. the kernels/ formulations (DCT-II's named entries, MTS, LFNST,
+     dq_rate_scan / dq_rate_device, bdpcm_*, trellis_depquant /
+     trellis_depquant_pscan on K1) on a CUDA tensor == on the CPU.
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
 a CUDA device or outside a checkout of the repo. Imports nothing of JAX.
@@ -823,6 +836,7 @@ def phase_main_path():
                        for r, f in zip(recons, frames)])
         psnr = 10 * np.log10(255 ** 2 / mse)
         phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
+        STREAMS[name] = stream
         out[name] = {"fps": len(frames) / dt, "seconds": dt,
                      "warmup_seconds": warm, "bytes": len(stream),
                      "psnr_y": psnr, "launches": launches,
@@ -876,6 +890,8 @@ def phase_card_vs_cpu():
         if not all((dec[k][c] == r_gpu[k][c]).all()
                    for k in range(n) for c in range(3)):
             raise AssertionError(f"{name} {size}: decode != reconstruction")
+        if size == P1080:
+            STREAMS["1080p"] = s_gpu
         out[f"{size[0]}x{size[1]} {name}"] = {"bytes": len(s_gpu),
                                                "cpu_seconds": t_cpu}
         log(f"{n}-frame {size[0]}x{size[1]} encode, {name}: card bytes == "
@@ -1112,6 +1128,9 @@ def _proto(frames):
 
 
 DEVICE_ENGINE = {"commit_engine": "device", "chroma_stage_a": "native"}
+# the single-device card streams of the 16 CIF frames (seed 1, QP 32) by
+# configuration, kept by phases 4 and 8 for the mesh phase to compare
+STREAMS = {}
 
 
 def _decodes(stream, recons, name):
@@ -1455,6 +1474,7 @@ def phase_device_commit(native_report):
                    for r, f in zip(recons, frames)])
     psnr = 10 * np.log10(255 ** 2 / mse)
     phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
+    STREAMS["commit_engine=device"] = stream
     log(f"device engine: {len(frames)} CIF frames QP 32 in {dt:.3f} s = "
         f"{len(frames) / dt:.3f} fps (warm-up {warm:.1f} s), {len(stream)} "
         f"bytes, PSNR-Y {psnr:.2f} dB, launches {launches} (one K1 launch "
@@ -1636,6 +1656,265 @@ def phase_batch_check(dev):
                             ["plain_ms"] for w in dev["k1_shapes"]
                             for P, _ in w) / n}
 
+def _mesh_cells(n):
+    """n mesh cells: n distinct cards when there are that many, else
+    cuda:0 n times. Returns (devices, distinct)."""
+    import torch
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], True
+    return [torch.device("cuda", 0)] * n, False
+
+
+def _mesh(n, frame_axis):
+    """A ('frame',) mesh of n cells (frame_axis None) or a (frame, row)
+    one, logged with its cells."""
+    from wrenc_tpu_torch import dist
+    devs, distinct = _mesh_cells(n)
+    mesh = (dist.Mesh(devs, ("frame",)) if frame_axis is None
+            else dist.make_mesh(devs, frame_axis=frame_axis))
+    cells = [str(d) for d in devs]
+    log(f"mesh {mesh.shape}: cells {cells}" + (
+        "" if distinct else " (every cell the one card: no scaling claim)"))
+    return mesh, {"shape": mesh.shape, "cells": cells,
+                  "distinct_cards": distinct}
+
+
+def phase_mesh():
+    """The sharded stage A (WavefrontSearch(cfg, mesh=...)) on the card:
+    16 CIF frames at QP 32 on a ('frame',) mesh of 2 cells and on a
+    (frame 2, row 3) mesh (96 rows, 3 CTU rows per band), the default
+    configuration warm-up then timed; on the (2, 3) mesh also
+    stage_a_trellis_rd=1 (K1), warm-up then timed, and the device commit
+    engine (one encode: it uploads its own planes). Cells are distinct
+    cards where there are enough, else cuda:0 repeated. Each encode's
+    launch counters are set to 0 just before it and read just after: the
+    stage-A kernel launches once per cell and QT size in every chunk, and
+    the card bytes equal the single-device card bytes of phases 4 / 8,
+    decode == reconstruction. Then 1080p on a (1, 2) mesh: one chunk's
+    stage A equals the single-device chunk's (host selection) exactly,
+    and a 1-frame encode gives the single-device encode's bytes (native
+    chroma, as a mesh runs it)."""
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.core.config import EncoderConfig
+    from wrenc_tpu_torch.encoder import Encoder
+    from wrenc_tpu_torch.search import WavefrontSearch
+    from wrenc_tpu_torch.search import wavefront as wf
+    t_phase = time.perf_counter()
+    frames = synth_frames(16, *CIF, seed=1)
+    out = {}
+    frame2, info2 = _mesh(2, None)
+    rows23, info23 = _mesh(6, 2)
+    cases = (("frame 2, default", frame2, info2, 0, {}, "default",
+              "dq_greedy", True),
+             ("frame 2 x row 3, default", rows23, info23, 0, {}, "default",
+              "dq_greedy", True),
+             ("frame 2 x row 3, stage_a_trellis_rd=1", rows23, info23, 1,
+              {}, "stage_a_trellis_rd=1", "dq_trellis", True),
+             ("frame 2 x row 3, commit_engine=device", rows23, info23, 0,
+              {"commit_engine": "device"}, "commit_engine=device",
+              "dq_greedy", False))
+    for name, mesh, info, tr, kw, ref, kern, warm_up in cases:
+        cfg = _cfg(tr)
+        search = WavefrontSearch(cfg, mesh=mesh, **kw)
+        enc = Encoder(cfg, search=search)
+        warm = None
+        if warm_up:
+            t0 = time.perf_counter()
+            enc.encode(frames)
+            warm = time.perf_counter() - t0
+        need = [kern] + (["dq_trellis_batch"] if kw else [])
+        stream, recons, dt, launches = _timed_encode(enc, frames, need)
+        _decodes(stream, recons, f"mesh [{name}]")
+        if stream != STREAMS[ref]:
+            raise AssertionError(f"mesh [{name}]: card bytes != the "
+                                 f"single-device card bytes ({ref})")
+        # stage A only: a mesh runs chroma stage A native (device chroma
+        # would add its own launches), and the commit launches neither
+        chunks = -(-len(frames) // search._buckets()[-1])
+        n_cells = mesh.size
+        want = chunks * n_cells * len(SIZES)
+        other = "dq_trellis" if kern == "dq_greedy" else "dq_greedy"
+        if launches[kern] != want or launches[other] != 0:
+            raise AssertionError(
+                f"mesh [{name}]: launches {launches}, want {kern} = "
+                f"{chunks} chunks x {n_cells} cells x {len(SIZES)} sizes")
+        phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
+        out[name] = dict(info, fps=len(frames) / dt, seconds=dt,
+                         warmup_seconds=warm, bytes=len(stream),
+                         launches=launches, chunks=chunks,
+                         launches_per_chunk={k: v / chunks
+                                             for k, v in launches.items()},
+                         phase_times=phases)
+        log(f"mesh [{name}]: {len(frames)} CIF frames QP 32 in {dt:.3f} s "
+            f"= {len(frames) / dt:.3f} fps" + (
+                f" (warm-up {warm:.1f} s)" if warm else " (one encode)")
+            + f", {len(stream)} bytes == single-device card bytes; "
+            f"launches {launches} = {want // chunks} {kern} per chunk "
+            f"({chunks} chunks x {n_cells} cells x {len(SIZES)} sizes); "
+            f"decode == reconstruction")
+        log(f"  phase_times (s): {json.dumps(phases)}")
+
+    # 1080p on a (1, 2) mesh: 1088 = 2 x 17 CTU rows
+    cfg = EncoderConfig(width=P1080[0], height=P1080[1], qp=32)
+    mesh, info = _mesh(2, 1)
+    f1 = synth_frames(1, *P1080, seed=2)
+    with _env("WRENC_STAGE_A_SELECT", "host"):
+        single = WavefrontSearch(cfg)
+    msearch = WavefrontSearch(cfg, mesh=mesh)
+    got = {}
+    for key, search in (("single", single), ("mesh", msearch)):
+        search._decide_chunk(search._dispatch_stage_a(f1))     # tables
+        counters = _counters()
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = search._dispatch_stage_a(f1)[2]
+        t1 = time.perf_counter()
+        host = wf._fetch_cells(res)
+        t2 = time.perf_counter()
+        got[key] = (host, {"dispatch_ms": (t1 - t0) * 1e3,
+                           "dispatch_to_host_ms": (t2 - t0) * 1e3,
+                           "launches": {k: f.launches
+                                        for k, f in counters.items()}})
+    for s_ in SIZES:
+        for a, b in zip(got["single"][0][s_], got["mesh"][0][s_]):
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    a.tobytes() != b.tobytes():
+                raise AssertionError(f"1080p (1, 2) mesh stage A != one "
+                                     f"device at s={s_}")
+    k2 = got["mesh"][1]["launches"]["dq_greedy"]
+    if k2 != 2 * len(SIZES):
+        raise AssertionError(f"1080p mesh stage A: {k2} K2 launches")
+    p = out["1080p (1, 2) stage A, one chunk"] = dict(
+        info, single=got["single"][1], mesh=got["mesh"][1])
+    log(f"mesh 1080p (1, 2): one 1-frame chunk's stage A equals one "
+        f"device's (cands, cost) at every size; dispatch "
+        f"{p['mesh']['dispatch_ms']:.1f} ms (one device "
+        f"{p['single']['dispatch_ms']:.1f}), to the host "
+        f"{p['mesh']['dispatch_to_host_ms']:.1f} ms (one device "
+        f"{p['single']['dispatch_to_host_ms']:.1f}), K2 launches "
+        f"{k2} (one device "
+        f"{got['single'][1]['launches']['dq_greedy']})")
+    f5 = synth_frames(1, *P1080, seed=5)
+    s_one, _ = Encoder(cfg, search=WavefrontSearch(
+        cfg, chroma_stage_a="native")).encode(f5)
+    enc = Encoder(cfg, search=WavefrontSearch(cfg, mesh=mesh))
+    stream, recons, dt, launches = _timed_encode(enc, f5, ["dq_greedy"])
+    _decodes(stream, recons, "mesh 1080p")
+    if stream != s_one:
+        raise AssertionError("mesh 1080p: card bytes != single-device "
+                             "card bytes")
+    out["1080p (1, 2), 1 frame"] = {
+        "seconds": dt, "bytes": len(stream), "launches": launches,
+        "same_as_default_device_chroma": stream == STREAMS.get("1080p"),
+        "phase_times": {k: round(v, 4)
+                        for k, v in enc.phase_times.items()}}
+    log(f"mesh 1080p (1, 2): 1-frame encode {dt:.3f} s, {len(stream)} "
+        f"bytes == single-device (native chroma) card bytes; launches "
+        f"{launches}")
+    out["wall_seconds"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {out['wall_seconds']:.1f} s")
+    return out
+
+
+def _rate_levels(log2, seed):
+    """Stored levels for the level-rate walks: random, all-zero,
+    DC-only, sparse, levels past the table's 1023 clip, int16 extremes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    s = 1 << log2
+    q = rng.integers(-40, 41, (64, s, s))
+    q[0] = 0
+    q[1] = 0
+    q[1, 0, 0] = 3
+    q[2] = np.where(rng.random((s, s)) < 0.9, 0, q[2])
+    q[3] = rng.integers(1800, 2400, (s, s))
+    q[4] = rng.choice([-32768, 32767, 0, 1, -1], (s, s))
+    return q.astype(np.int16)
+
+
+def phase_item4():
+    """The last kernels/ formulations on a CUDA tensor against the same
+    call on the CPU, exactly (values, dtype, shape): DCT-II's named
+    entries and MTS at n = 4..32 for every (tr_hor, tr_ver) of the golden
+    tests, LFNST at their sizes, modes and indices, dq_rate_scan and
+    dq_rate_device at every size (both rate tables), bdpcm_* both ways,
+    and trellis_depquant / trellis_depquant_pscan at every size and QP
+    22 / 37 / 51, each call advancing K1's counter by exactly one."""
+    import numpy as np
+    import torch
+    from wrenc_tpu_torch.core.config import RateModelConfig
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import transforms as kt
+    from wrenc_tpu_torch.kernels import trellis as ktr
+    from wrenc_tpu_torch.spec import quant
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(8)
+    checks = {}
+
+    def same(name, fn, *args):
+        arrays = [isinstance(a, np.ndarray) for a in args]
+        cpu = fn(*[torch.as_tensor(a) if t else a
+                   for a, t in zip(args, arrays)])
+        got = fn(*[torch.as_tensor(a, device="cuda") if t else a
+                   for a, t in zip(args, arrays)]).cpu()
+        if (got.dtype != cpu.dtype or got.shape != cpu.shape
+                or not torch.equal(got, cpu)):
+            scalars = [a for a, t in zip(args, arrays) if not t]
+            raise AssertionError(f"{name} {scalars}: card != CPU")
+        checks[name] = checks.get(name, 0) + 1
+        return cpu.numpy()
+
+    for n in SIZES:
+        res = rng.integers(-255, 256, (64, n, n)).astype(np.int32)
+        fwd = same("forward_dct2", kt.forward_dct2, res)
+        same("inverse_dct2", kt.inverse_dct2, fwd)
+        for tr in ((1, 1), (2, 1), (1, 2), (2, 2), (0, 1)):
+            c = same("forward_mts", kt.forward_mts, res, *tr)
+            same("inverse_mts", kt.inverse_mts, c // 16, *tr)
+    for th, tw in ((4, 4), (8, 8), (16, 16), (4, 8), (8, 16)):
+        blocks = rng.integers(-512, 512, (64, th, tw)).astype(np.int32)
+        for mode in (0, 1, 10, 18, 34, 40, 50, 66):
+            for idx in (1, 2):
+                c = same("forward_lfnst", kt.forward_lfnst, blocks, mode,
+                         idx)
+                same("inverse_lfnst", kt.inverse_lfnst, c // 4, mode, idx)
+    rm = RateModelConfig()
+    for log2 in (2, 3, 4, 5):
+        q = _rate_levels(log2, 40 + log2)
+        for trellis in (False, True):
+            lv = kq.lv_table_device(rm, True, trellis)
+            same("dq_rate_scan", kq.dq_rate_scan, q, log2, lv)
+            same("dq_rate_device", kq.dq_rate_device, q, log2, lv)
+    for n in (4, 8, 32):
+        q = rng.integers(-(1 << 14), 1 << 14, (16, n, n)).astype(np.int32)
+        big = rng.integers(-70000, 70000, (16, n, n)).astype(np.int32)
+        for d in (0, 1):
+            same("bdpcm_dpcm", kq.bdpcm_dpcm, q, d)
+            same("bdpcm_inverse", kq.bdpcm_inverse, big, d)
+    for log2 in (2, 3, 4, 5):
+        t = adversarial_blocks(log2, 60 + log2)
+        for qp in (22, 37, 51):
+            qpar = quant.derive_quant_params(qp, log2, log2, dep_quant=True,
+                                             transform_skip=False)
+            lam = kq.lam_dq_table(rm, qp, trellis=True)
+            for name, fn in (("trellis_depquant", kq.trellis_depquant),
+                             ("trellis_depquant_pscan",
+                              kq.trellis_depquant_pscan)):
+                before = ktr.trellis_rate.launches
+                same(name, fn, t, qpar.ls, qpar.bd_shift, lam, log2)
+                k1 = ktr.trellis_rate.launches - before
+                if k1 != 1:
+                    raise AssertionError(f"{name}: K1 launched {k1} times "
+                                         "for one call")
+    wall = time.perf_counter() - t_phase
+    log(f"kernels/ formulations on the card == on the CPU, exactly: "
+        f"{json.dumps(checks)} calls; K1's counter advanced by one per "
+        f"trellis_depquant* call; {wall:.1f} s")
+    return {"checks": checks, "wall_seconds": wall}
+
 
 def main():
     if not os.path.isdir(os.path.join(ROOT, "wrenc_tpu_torch")):
@@ -1672,6 +1951,8 @@ def main():
     paths = phase_commit_paths()
     dev = phase_device_commit(main_path["default"])
     batch = phase_batch_check(dev)
+    mesh = phase_mesh()
+    item4 = phase_item4()
 
     replaces = {"dq_trellis": "wrenc_tpu/kernels/trellis_pallas.py:55",
                 "dq_greedy": "wrenc_tpu/kernels/quantize.py:136"}
@@ -1701,6 +1982,11 @@ def main():
         if n == "commit_frame_device":
             n = "commit_frame_device, 2 CIF frames"
         per_path[n] = c["launches"]
+    for n, c in mesh.items():
+        if isinstance(c, dict) and "launches" in c:
+            per_path[f"mesh {n}"] = c["launches"]
+    per_path["mesh 1080p (1, 2) stage A, one chunk"] = \
+        mesh["1080p (1, 2) stage A, one chunk"]["mesh"]["launches"]
     kernels = []
     for name in ("dq_trellis", "dq_greedy"):
         r = rows[name]
@@ -1726,6 +2012,7 @@ def main():
                                    for x in v] for n, v in chroma.items()})
         if name == "dq_trellis":
             kernels[-1].update(
+                also_entries=["trellis_depquant", "trellis_depquant_pscan"],
                 ptxas=build["ptxas"], lanes_sweep_4x4_ms=sweep,
                 chroma_per_chunk={"1080p 1 frame, stage_a_trellis_rd=1": {
                     "launches": trellis_chunk["launches"]["dq_trellis"],
@@ -1781,6 +2068,8 @@ def main():
     log(f"card vs CPU: {json.dumps(card_cpu)}")
     log(f"commit paths: {json.dumps(paths)}")
     log(f"device engine: {json.dumps(dev)}")
+    log(f"mesh: {json.dumps(mesh)}")
+    log(f"kernels/ formulations: {json.dumps(item4)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,6 @@
 - it imports with jax (and the JAX package) unavailable, and no module of
   it or chip_smoke.py imports either;
 - its entry points default to the card and raise without one;
-- the one branch outside the port (the sharded stage A, mesh=) raises
-  NotImplementedError;
 - failed native / nvcc builds and unsupported devices raise instead of
   falling back.
 """
@@ -78,13 +76,6 @@ def test_search_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         from wrenc_tpu_torch.encoder import Encoder
         Encoder(EncoderConfig(width=64, height=64))
-
-
-@pytest.mark.parametrize("case", ["mesh"])
-def test_unported_branches_raise(case):
-    cfg = EncoderConfig(width=64, height=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WavefrontSearch(cfg, device="cpu", mesh=object())
 
 
 def test_native_build_failure_raises(tmp_path, monkeypatch):

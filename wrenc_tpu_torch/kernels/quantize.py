@@ -1,11 +1,15 @@
 """Batched dependent quantization in PyTorch.
 
-Counterpart of wrenc_tpu/kernels/quantize.py for the stage-A path:
-`coding_order`, `lam_dq_table`, `lv_table_device` (numpy tables, copied),
-`dequantize`, and `greedy_depquant` — the greedy dep-quant scan with the
-RD level rate. The JAX version's one-hot MXU lookups (`_lut1024_i32`) are
-a TPU workaround; here a rate-table lookup is a plain index with the same
-clip to [0, 1023].
+Counterpart of wrenc_tpu/kernels/quantize.py: `coding_order`,
+`lam_dq_table`, `lv_table_device` (numpy tables, copied), `dequantize`,
+`greedy_depquant` — the greedy dep-quant scan with the RD level rate —,
+the trellis entries `trellis_depquant` / `trellis_depquant_pscan` (K1),
+the level-rate walks `dq_rate_scan` / `dq_rate_device`, and BDPCM's
+`bdpcm_dpcm` / `bdpcm_inverse`. The JAX version's one-hot lookups
+(`_lut1024_i32`, an MXU contraction, and the one-hot selects `_sel_last`
+/ `_sel_map`) are TPU workarounds for slow gathers; here a rate-table
+lookup is a plain index with the same clip to [0, 1023] and a selection
+is a gather.
 
 `greedy_depquant` launches the hand-written CUDA kernel K2 (`dq_greedy`
 in csrc/dq_scan.cu) for CUDA tensors and runs `greedy_depquant_plain`,
@@ -342,3 +346,119 @@ def dequantize(q, ls, bd_shift):
     bd_offset = (1 << bd) >> 1
     d = (q * ls + bd_offset) >> bd
     return torch.clamp(d, -(1 << 15), (1 << 15) - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_lv(device):
+    """A (1024,) zero rate table on `device`, uploaded once."""
+    return torch.zeros(1024, dtype=torch.float32, device=device)
+
+
+def trellis_depquant(t, ls, bd_shift, lam_dq, log2_n):
+    """Exact 8-state (q_state x trailing) dependent-quantization Viterbi,
+    batched: t (B, n, n) int transform coefficients, ls / bd_shift scalars
+    or (B,) per block, lam_dq (1024,) int32. Returns q (B, n, n) int16
+    stored levels.
+
+    The levels of kernels/trellis.trellis_rate, whose rate is dropped (the
+    levels do not depend on its rate table): a CUDA tensor launches K1, a
+    CPU tensor runs K1's plain twin. The reference's sequential lax.scan,
+    its log-depth twin and the Pallas kernel are three formulations of
+    one Viterbi; the port keeps one."""
+    from . import trellis
+    q, _ = trellis.trellis_rate(t, ls, bd_shift, lam_dq, _zero_lv(t.device),
+                                log2_n)
+    return q
+
+
+def trellis_depquant_pscan(t, ls, bd_shift, lam_dq, log2_n):
+    """The reference's parallel-scan Viterbi: its min-plus associative
+    scan over the positions is a log-depth formulation for the TPU, where
+    a sequential chain serialises the vector units; its levels are those
+    of the sequential trellis, so here it is trellis_depquant (K1 on a
+    CUDA tensor, its plain twin on the CPU)."""
+    return trellis_depquant(t, ls, bd_shift, lam_dq, log2_n)
+
+
+def dq_rate_scan(q, log2_n, lv_table):
+    """RD level-rate of stored q levels (dep-quant walk), batched -> (B,)
+    f32: the per-position rates summed in f32 in ascending coding order
+    (lv_table[a] for a level a > 0, lv_table[0] for a zero once a nonzero
+    level has been coded, nothing for the trailing zeros)."""
+    B = q.shape[0]
+    dev = q.device
+    qf = to_coding_order(q, log2_n).abs()
+    lv = table(lv_table, torch.float32, dev)
+    q_state = torch.zeros(B, dtype=torch.int32, device=dev)
+    trailing = torch.ones(B, dtype=torch.bool, device=dev)
+    rate = torch.zeros(B, dtype=torch.float32, device=dev)
+    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
+    for p in range(qf.shape[1]):
+        qv = qf[:, p]
+        a = torch.where(qv == 0, 0, (qv + (q_state > 1).to(torch.int32)) // 2)
+        rate = rate + torch.where(a == 0,
+                                  torch.where(trailing, zero_f, lv[0]),
+                                  lv[a.clamp(0, 1023).long()])
+        trailing = trailing & (a == 0)
+        q_state = trans_next(q_state, a & 1)
+    return rate
+
+
+def dq_rate_device(q, log2_n, lv_table):
+    """RD level-rate of stored q levels by pairwise composition: the
+    dep-quant state walk is a chain of deterministic 8-state maps (state =
+    q_state*2 + trailing), each position a map and a rate per source
+    state; adjacent positions compose as (r1 + r2[n1], n2[n1]) until one
+    is left, read from the start state (q_state 0, trailing). The same
+    composition order as the reference, so the f32 sums are bit-equal to
+    its; they differ from dq_rate_scan's sequential sum in the last bits.
+    Returns (B,) f32."""
+    dev = q.device
+    v = to_coding_order(q, log2_n).abs()                     # (B, P)
+    P = v.shape[1]
+    lv = table(lv_table, torch.float32, dev)
+    st = torch.arange(8, dtype=torch.int32, device=dev)
+    qs, tr = st >> 1, (st & 1).bool()
+    delta_s = (qs > 1).long()
+    # a only depends on delta: the rates on the compact (B, P, 2) grid,
+    # then expanded to the 8 states by indexing
+    a2 = (v[:, :, None] + torch.arange(2, dtype=torch.int32, device=dev)) // 2
+    r2 = lv[a2.clamp(0, 1023).long()]
+    a = a2[:, :, delta_s]                                    # (B, P, 8)
+    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
+    r = torch.where(a == 0, torch.where(tr, zero_f, lv[0]), r2[:, :, delta_s])
+    n = (trans_next(qs, a & 1) * 2 + (tr & (a == 0)).to(torch.int32)).long()
+    while P > 1:   # compose adjacent position pairs (earlier, later)
+        n1, n2 = n[:, 0::2], n[:, 1::2]
+        r = r[:, 0::2] + r[:, 1::2].gather(2, n1)
+        n = n2.gather(2, n1)
+        P //= 2
+    return r[:, 0, 1]    # start state: q_state 0, trailing true
+
+
+def bdpcm_dpcm(q, dir_flag):
+    """Batched forward residual DPCM on (B, n, n) quantized levels, each
+    level minus its ORIGINAL neighbour above (dir_flag 1, vertical) or to
+    the left (0); int32."""
+    q = q.to(torch.int32)
+    out = q.clone()
+    if dir_flag:
+        out[:, 1:, :] -= q[:, :-1, :]
+    else:
+        out[:, :, 1:] -= q[:, :, :-1]
+    return out
+
+
+def bdpcm_inverse(d, dir_flag):
+    """Batched inverse residual DPCM: the running sum along the DPCM axis,
+    clamped to int16 at every step (not once at the end), of the
+    int16-clamped coded values; int32."""
+    lo, hi = -(1 << 15), (1 << 15) - 1
+    d = torch.clamp(d.to(torch.int32), lo, hi)
+    axis = 1 if dir_flag else 2
+    carry = torch.zeros_like(d.select(axis, 0))
+    rows = []
+    for row in d.unbind(axis):
+        carry = torch.clamp(carry + row, lo, hi)
+        rows.append(carry)
+    return torch.stack(rows, axis)

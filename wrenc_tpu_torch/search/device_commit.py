@@ -394,7 +394,8 @@ def _apply_refine_flags(all_trees, use_map):
             walk(t)
 
 
-def commit_frames_device_rd(cfg, origs, all_trees, dev_planes):
+def commit_frames_device_rd(cfg, origs, all_trees, dev_planes=None,
+                            device='cuda'):
     """Re-decision commit of every frame's tree on the device, one scan.
 
     Same decision discipline as the native RdCommitter at the production
@@ -402,8 +403,15 @@ def commit_frames_device_rd(cfg, origs, all_trees, dev_planes):
     refinement), with f32 costs (the C++ uses f64), and byte-identical to
     the JAX engine. dev_planes: the (y, cb, cr) uint8 (F', H*W / H*W/4)
     planes of the F = len(origs) frames (F' >= F), already on the device
-    that runs the scan. Updates cu.luma_mode/chroma_mode/coeffs and the
-    tree structure in place; returns per-frame (ry, rcb, rcr)."""
+    that runs the scan; None uploads the frames' planes from `origs` to
+    `device` (a sharded stage A shares none). Updates
+    cu.luma_mode/chroma_mode/coeffs and the tree structure in place;
+    returns per-frame (ry, rcb, rcr)."""
+    if dev_planes is None:
+        dev_planes = tuple(
+            _upload(np.stack([np.asarray(o[c], np.uint8).reshape(-1)
+                              for o in origs]), torch.device(device))
+            for c in range(3))
     segments, has_ph = _build_schedule(cfg, all_trees)
     scan = RdScan(cfg, len(origs), segments, has_ph, dev_planes)
     for si in range(len(segments)):

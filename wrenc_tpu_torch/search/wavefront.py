@@ -26,8 +26,17 @@ Under `commit_engine='device'` the commit runs on the device instead
 NumPy rank-wavefront commit (`_commit`) runs. WRENC_STAGE_A_SELECT=host
 moves the luma winner selection to the host (`_select_modes`, numpy).
 
-The sharded stage A of the JAX module (mesh=) raises NotImplementedError.
+Under `mesh=` (a `dist.Mesh` of torch devices, one process driving every
+cell) stage A is sharded: the chunk is padded to a multiple of the
+`frame` axis and each frame cell runs `fused_luma_stage_a` on its frames;
+with a `row` axis each cell runs `fused_luma_band_stage_a` on its
+CTU-row band, with a one-row halo copied from the band above, and the
+luma winners are selected on the host. The results are fetched per cell
+and concatenated: bit-identical to one device. A mesh uploads no shared
+planes, so chroma stage A runs in the native library and the device
+commit engine uploads its own planes.
 """
+import contextlib
 import functools
 import os
 import time
@@ -44,13 +53,6 @@ from .device_commit import (commit_frames_device_rd, mpm_bits_f32,
                             mpm_key, rank_groups)
 
 
-def _not_ported(what, item=None):
-    where = f", item {item}" if item else ""
-    raise NotImplementedError(
-        f"{what} is not ported to wrenc_tpu_torch yet (ROADMAP.md, "
-        f"'Modules still to port'{where})")
-
-
 def resolve_device(device):
     """None means the card; a missing card raises (no CPU fallback)."""
     dev = torch.device('cuda' if device is None else device)
@@ -58,6 +60,36 @@ def resolve_device(device):
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port on the CPU")
     return dev
+
+
+def _indexed(dev):
+    """'cuda' as the current card's index, so that a mesh's cells and a
+    device argument compare as the devices they are."""
+    if dev.type == 'cuda' and dev.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return dev
+
+
+def _mesh_cells(mesh):
+    """The mesh's devices as a (frame, row) grid (the row axis of a 1-D
+    ('frame',) mesh is 1), each resolved as resolve_device does."""
+    names = tuple(mesh.axis_names)
+    if names not in (('frame',), ('frame', 'row')):
+        raise ValueError(f"mesh axes {names}: want ('frame',) or "
+                         "('frame', 'row')")
+    shape = mesh.shape
+    grid = np.empty(mesh.devices.size, dtype=object)
+    for i, d in enumerate(mesh.devices.reshape(-1)):
+        grid[i] = _indexed(resolve_device(d))
+    return grid.reshape(shape['frame'], shape.get('row', 1))
+
+
+def _on(dev):
+    """Make `dev` the current card for the block (hand kernels launch on
+    the current device's stream); nothing for the CPU."""
+    if dev.type == 'cuda':
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 class WavefrontSearch:
@@ -75,11 +107,16 @@ class WavefrontSearch:
         device engine or at >= 0.5 Mpx); trellis_commit False quantizes
         the commit greedily; rd_commit False applies stage A's decisions
         without re-deciding them. Env WRENC_STAGE_A_SELECT=host selects
-        the luma winners on the host. The sharded stage A (mesh) is not
-        ported."""
+        the luma winners on the host.
+
+        mesh: optional dist.Mesh with a 'frame' axis and optionally a
+        'row' axis: stage A is sharded over its cells (see the module
+        docstring); host passes (decide, commit, entropy) are per frame
+        and unaffected. The search's own device is then the mesh's
+        first cell, and a `device` naming another raises."""
         cfg.validate()
-        if mesh is not None:
-            _not_ported("the sharded stage A (mesh=)", 5)
+        self.mesh = mesh
+        self._cells = None if mesh is None else _mesh_cells(mesh)
         self.trellis_commit = trellis_commit
         self.rd_commit = rd_commit
         self.commit_engine = commit_engine or os.environ.get(
@@ -101,7 +138,14 @@ class WavefrontSearch:
                        else 'native')
         self._chroma_device = (chroma_stage_a or os.environ.get(
             'WRENC_CHROMA_STAGE_A', auto_chroma)) == 'device'
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = self._cells[0, 0]
+            if (device is not None
+                    and _indexed(resolve_device(device)) != self.device):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"cell {self.device}")
         self.cfg = cfg
         self.rm = cfg.rate_model
         qp = cfg.qp
@@ -126,7 +170,7 @@ class WavefrontSearch:
         self.mode_bits_scale = getattr(self.rm, 'stage_a_mode_bits_scale',
                                        2.0)
         self._refine_margin = self.rm.split_refine_margin
-        self._dev_args = None
+        self._dev_args = {}
 
     # ------------------------------------------------------------- stage A
     def _approx_mode_bits(self):
@@ -256,12 +300,14 @@ class WavefrontSearch:
             self.phase_times = {}
         self.phase_times[name] = self.phase_times.get(name, 0.0) + dt
 
-    def _stage_a_args(self):
+    def _stage_a_args(self, dev=None):
         """Device-resident QP tables and scalars for stage A, uploaded once
-        per search: a host scalar handed to a CUDA op inside the dispatch
-        would cost a blocking copy per chunk."""
-        if self._dev_args is None:
-            cfg, dev = self.cfg, self.device
+        per search and device (None: the search's; a mesh's cells each
+        read their own): a host scalar handed to a CUDA op inside the
+        dispatch would cost a blocking copy per chunk."""
+        dev = self.device if dev is None else dev
+        if dev not in self._dev_args:
+            cfg = self.cfg
             tr = bool(getattr(self.rm, 'stage_a_trellis_rd', 0.0))
             sizes = self._sizes()
 
@@ -273,7 +319,7 @@ class WavefrontSearch:
 
             po, idx_bits, rem_bits = _mpm_scalar_tabs(
                 self.rm, cfg.dep_quant_enabled)
-            self._dev_args = dict(
+            args = self._dev_args[dev] = dict(
                 K=int(getattr(self.rm, 'stage_a_num_rd_cands', 4)),
                 trellis=tr,
                 ls={s: i32(self.qpar[(0, s.bit_length() - 1)].ls)
@@ -290,13 +336,14 @@ class WavefrontSearch:
                 seltabs=(f32(np.float32(self.lam * self.mode_bits_scale)),
                          f32(self._mode_bits), f32(po), f32(idx_bits),
                          f32(rem_bits)))
-            if self._chroma_device:
+            if self._chroma_device and self.mesh is None:
                 # the chroma QP's ls / bd_shift per chroma size (4, 8, 16),
-                # the CCLM mode bits and the chroma mode matrices
+                # the CCLM mode bits and the chroma mode matrices (a mesh
+                # runs chroma stage A in the native library)
                 rm, dep = self.rm, cfg.dep_quant_enabled
                 co = rm.pick('cclm_offset', dep, True)
                 cio = rm.pick('cclm_mode_idx_offset', dep, True)
-                self._dev_args.update(
+                args.update(
                     ls_c=tuple(i32(self.qpar[(1, lg)].ls)
                                for lg in (2, 3, 4)),
                     bd_c=tuple(i32(self.qpar[(1, lg)].bd_shift)
@@ -306,7 +353,7 @@ class WavefrontSearch:
                     mats_c={cs: intra_pred.mats_device_f32(cs, 1, dev)
                             for cs in self._chroma_sizes()})
             kq.order_table(dev)   # K1's / K2's coding orders, uploaded once
-        return self._dev_args
+        return self._dev_args[dev]
 
     def _chroma_sizes(self):
         """Chroma block sizes of the single-tree leaves (QT sizes >= 8)."""
@@ -319,10 +366,11 @@ class WavefrontSearch:
 
     def _dispatch_stage_a(self, frames):
         """Dispatch the fused luma stage A for one chunk; does NOT block.
-        Returns (batch, sizes, device results, device planes): the planes
-        are (y, cb, cr) uint8 (F', H*W / H*W/4) for the device chroma
-        stage A and the device commit engine, which share the upload, and
-        None when neither runs."""
+        Returns (batch, sizes, device results, device planes): the results
+        are fused_luma_stage_a's dict, or under a mesh _dispatch_mesh's
+        cells; the planes are (y, cb, cr) uint8 (F', H*W / H*W/4) for the
+        device chroma stage A and the device commit engine, which share
+        the upload, and None when neither runs (always under a mesh)."""
         cfg = self.cfg
         batch = [[np.asarray(p, dtype=np.int32) for p in planes]
                  for planes in frames]
@@ -330,6 +378,12 @@ class WavefrontSearch:
         Fpad = self._bucket(F)
         padded = batch + [batch[-1]] * (Fpad - F) if Fpad > F else batch
         sizes = self._sizes()
+        if self.mesh is not None:
+            t0 = time.perf_counter()
+            res = self._dispatch_mesh(
+                np.stack([b[0] for b in padded]).astype(np.uint8), sizes)
+            self._phase('device_dispatch', time.perf_counter() - t0)
+            return batch, sizes, res, None
         a = self._stage_a_args()
         t0 = time.perf_counter()
         planes = self._upload([b[0] for b in padded])
@@ -347,14 +401,61 @@ class WavefrontSearch:
         self._phase('device_dispatch', time.perf_counter() - t0)
         return batch, sizes, res, dev_planes
 
-    def _upload(self, planes):
-        """Planes (or rows of small integers) to the device as uint8, from
-        pinned memory without blocking (the caching host allocator keeps
-        the pinned block until the copy has run)."""
+    def _dispatch_mesh(self, planes_y, sizes):
+        """The sharded stage A of one chunk (planes_y: (F', H, W) uint8 on
+        the host, padded to the bucket); does NOT block. The frames are
+        padded to a multiple of the frame axis by repeating the last one.
+        Each frame cell uploads its frames to its device; under a row axis
+        each (frame, row) cell uploads its band, takes the last row of the
+        band above as its halo (band 0: zeros) and runs the band stage A,
+        so the luma winners are selected on the host. Returns the cells'
+        device results, [[{s: outputs} per row band] per frame cell]."""
+        cfg = self.cfg
+        W, H, log2_ctu = cfg.width, cfg.height, cfg.log2_ctu_size
+        nf, nr = self._cells.shape
+        pad = (-len(planes_y)) % nf
+        if pad:
+            planes_y = np.concatenate(
+                [planes_y, np.repeat(planes_y[-1:], pad, axis=0)])
+        F_loc = len(planes_y) // nf
+        band_h = H // nr
+        out = []
+        for f in range(nf):
+            frames = planes_y[f * F_loc:(f + 1) * F_loc]
+            bands, above = [], None
+            for r in range(nr):
+                dev = self._cells[f, r]
+                a = self._stage_a_args(dev)
+                with _on(dev):
+                    band = self._upload(
+                        frames[:, r * band_h:(r + 1) * band_h], dev)
+                    if nr == 1:
+                        bands.append(fused_luma_stage_a(
+                            band, W, H, log2_ctu, tuple(sizes), a['K'],
+                            a['trellis'], a['ls'], a['bd'], a['lam_dq'],
+                            a['lv'], a['lam'], a['mats'], a['seltabs'],
+                            sel=self._select_device))
+                        continue
+                    halo = (torch.zeros((F_loc, W), dtype=torch.uint8,
+                                        device=dev) if above is None
+                            else above[:, -1, :].to(dev, non_blocking=True))
+                    bands.append(fused_luma_band_stage_a(
+                        band, halo, W, H, log2_ctu, tuple(sizes), nr, r,
+                        a['K'], a['trellis'], a['ls'], a['bd'],
+                        a['lam_dq'], a['lv'], a['lam'], a['mats']))
+                above = band
+            out.append(bands)
+        return out
+
+    def _upload(self, planes, dev=None):
+        """Planes (or rows of small integers) to `dev` (None: the search's
+        device) as uint8, from pinned memory without blocking (the caching
+        host allocator keeps the pinned block until the copy has run)."""
+        dev = self.device if dev is None else dev
         host = torch.from_numpy(np.stack(planes).astype(np.uint8))
-        if self.device.type == 'cuda':
+        if dev.type == 'cuda':
             host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
+        return host.to(dev, non_blocking=True)
 
     def _decide_chunk(self, dispatched):
         """Wait for a dispatched stage A and run the decide phases;
@@ -366,8 +467,7 @@ class WavefrontSearch:
         luma_cands_b = {}
         luma_cand_cost_b = {}
         t0 = time.perf_counter()
-        res = {s: tuple(x.cpu().numpy() for x in r)   # waits for the device
-               for s, r in res.items()}
+        res = _fetch_cells(res)                       # waits for the device
         self._phase('device_stage_a', time.perf_counter() - t0)
         t0 = time.perf_counter()
         for s in sizes:
@@ -385,7 +485,7 @@ class WavefrontSearch:
         self._phase('host_select', time.perf_counter() - t0)
         t0 = time.perf_counter()
         chroma_cache = {}
-        if self._chroma_device:
+        if self._chroma_device and dev_planes is not None:
             self._prefill_chroma_device(chroma_cache, luma_mode_b, sizes, F,
                                         dev_planes)
         else:
@@ -436,7 +536,7 @@ class WavefrontSearch:
             return recons
         if self._device_commit:
             return commit_frames_device_rd(self.cfg, batch, all_trees,
-                                           dev_planes)
+                                           dev_planes, self.device)
         ls_tab = np.zeros((2, 4), dtype=np.int32)
         bd_tab = np.zeros((2, 4), dtype=np.int32)
         for c in (0, 1):
@@ -891,6 +991,29 @@ class WavefrontSearch:
             recon[c_idx][ys[i]:ys[i] + s, xs[i]:xs[i] + s] = rec[i]
             cu.coeffs[c_idx] = q[i]
 
+
+def _fetch_cells(cells):
+    """Stage A's device results on the host: {s: outputs} of one device,
+    or a mesh's [[{s: outputs} per row band] per frame cell], each cell's
+    outputs fetched (waiting for its device), the bands of a frame cell
+    concatenated along the blocks (in row order, which is the full-frame
+    raster block order) and the frame cells along the frames. Returns
+    {s: tuple of numpy arrays}."""
+    if isinstance(cells, dict):
+        cells = [[cells]]
+
+    def cat(parts, axis):
+        if len(parts) == 1:
+            return parts[0]
+        return {s: tuple(np.concatenate([p[s][i] for p in parts], axis)
+                         for i in range(len(parts[0][s])))
+                for s in parts[0]}
+
+    return cat([cat([{s: tuple(x.cpu().numpy() for x in r)
+                      for s, r in band.items()} for band in bands], 1)
+                for bands in cells], 0)
+
+
 def _merge_devp(gd):
     """Concatenate per-chunk device planes ((y, cb, cr) uint8, padded to
     the stage-A bucket) into one commit group's; None for the native
@@ -1170,13 +1293,9 @@ def fused_luma_stage_a(planes, W, H, log2_ctu, sizes, K, trellis, ls, bd,
     sc, mb67, po, idx_bits, rem_bits = seltabs
     out = {}
     for s in sizes:
-        src, fill, pi, ni, keep, top_mask = consts[s]
-        N = src.shape[0]
-        v = _ref_vectors(flat, src, fill, pi, ni, keep)
-        pred = intra_pred.predict_all_modes_m(v, mats[s], s)
-        blocks = _tiles(flat, H, W, s).reshape(-1, s * s)
-        cands, cost = _stage_a_select(pred, blocks, K, ls[s], bd[s], lam_dq,
-                                      lv, s.bit_length() - 1, lam, trellis)
+        N, top_mask = consts[s][0].shape[0], consts[s][5]
+        cands, cost = _luma_cands(flat, flat, H, W, s, consts[s], K,
+                                  trellis, ls, bd, lam_dq, lv, lam, mats)
         if not sel:
             out[s] = (cands.reshape(F, N, -1), cost.reshape(F, N, -1))
             continue
@@ -1184,6 +1303,96 @@ def fused_luma_stage_a(planes, W, H, log2_ctu, sizes, K, trellis, ls, bd,
             cost.reshape(F, N, -1), cands.reshape(F, N, -1).long(), H // s,
             W // s, top_mask, sc, mb67, po, idx_bits, rem_bits)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _band_tables(W, H, log2_ctu, sizes, nr):
+    """The row-band gather tables of `nr` equal CTU-row bands (the JAX
+    `_fused_luma_sharded_builder`'s): per size, (band 0's, the interior
+    bands') (src, fill), the full-frame substitution gather's rows of
+    the band moved into band-local coordinates, where row 0 is the halo
+    row from the band above. Band 0 keeps its own table (the picture
+    top); every other band shares one, which is asserted, as are
+    CTU-row-aligned equal bands."""
+    band_h = H // nr
+    if band_h % (1 << log2_ctu) or band_h * nr != H:
+        # the mesh is the caller's input: checked under -O too, with the
+        # reference's exception
+        raise AssertionError("row sharding requires CTU-row-aligned equal "
+                             "bands")
+    out = {}
+    for s in sizes:
+        src, fill = refs.subst_gather(W, H, s, 0, log2_ctu)
+        nb = (band_h // s) * (W // s)
+        loc = [src[b * nb:(b + 1) * nb] - (b * band_h - 1) * W
+               for b in range(nr)]
+        # interior bands share one pattern; band 0 differs (picture top)
+        for b in range(2, nr):
+            assert (loc[b] == loc[1]).all(), "interior bands must match"
+        fl = [fill[b * nb:(b + 1) * nb] for b in range(nr)]
+        for b in range(2, nr):
+            assert (fl[b] == fl[1]).all()
+        # a filled block (nothing available: band 0's first) reads a
+        # substitution source outside the band; XLA's gather clamps it
+        # and the fill flag masks the value, so clamp it here as well
+        loc = [np.clip(x, 0, (band_h + 1) * W - 1) for x in loc]
+        out[s] = ((loc[0], fl[0]), (loc[-1], fl[-1]))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _band_consts(W, H, log2_ctu, sizes, nr, interior, device):
+    """_band_tables' tables of band 0 (interior False) or of the interior
+    bands on the device, with the [1 2 1] filter's indices (cached per
+    process, geometry, band kind and device)."""
+    consts = {}
+    for s, tabs in _band_tables(W, H, log2_ctu, sizes, nr).items():
+        src, fill = tabs[int(interior)]
+        pi, ni, keep = refs.filter121_indices(s)
+        consts[s] = tuple(torch.as_tensor(x, device=device) for x in (
+            src.astype(np.int64), fill, pi.astype(np.int64),
+            ni.astype(np.int64), keep))
+    return consts
+
+
+def fused_luma_band_stage_a(planes, halo, W, H, log2_ctu, sizes, nr, band,
+                            K, trellis, ls, bd, lam_dq, lv, lam, mats):
+    """The luma stage A of one CTU-row band (band `band` of `nr` equal
+    bands), the cell function of the JAX `_fused_luma_sharded_builder`:
+    the same cost model as fused_luma_stage_a, bit-identical by
+    construction. planes: (F, H / nr, W) uint8, the band's rows; halo:
+    (F, W) uint8, the last row of the band above (band 0: zeros, which
+    its fill flags mask), on the same device. Returns {s: (cands int8
+    (F, nb, K+2), base cost f32 (F, nb, K+2))} for the band's nb blocks
+    in raster order, still on the device; the host selects the
+    winners."""
+    F, band_h = planes.shape[0], planes.shape[1]
+    consts = _band_consts(W, H, log2_ctu, sizes, nr, band > 0,
+                          planes.device)
+    x = torch.cat([halo[:, None, :], planes], dim=1).to(torch.int32)
+    flat = x.reshape(F, (band_h + 1) * W)
+    out = {}
+    for s in sizes:
+        nb = consts[s][0].shape[0]
+        cands, cost = _luma_cands(flat, x[:, 1:], band_h, W, s, consts[s],
+                                  K, trellis, ls, bd, lam_dq, lv, lam, mats)
+        out[s] = (cands.reshape(F, nb, -1), cost.reshape(F, nb, -1))
+    return out
+
+
+def _luma_cands(flat, plane, h, w, s, consts, K, trellis, ls, bd, lam_dq,
+                lv, lam, mats):
+    """One QT size of the luma stage A: every s-block's reference vector
+    (gathered from `flat` through consts' src / fill / [1 2 1] indices),
+    the 67-mode sweep, and the RD of the top candidates against the
+    block's pixels (the s-grid of `plane`, (F, h, w) or (F, h*w)).
+    Returns (cands int8 (B, K+2), base cost f32 (B, K+2))."""
+    src, fill, pi, ni, keep = consts[:5]
+    v = _ref_vectors(flat, src, fill, pi, ni, keep)
+    pred = intra_pred.predict_all_modes_m(v, mats[s], s)
+    blocks = _tiles(plane, h, w, s).reshape(-1, s * s)
+    return _stage_a_select(pred, blocks, K, ls[s], bd[s], lam_dq, lv,
+                           s.bit_length() - 1, lam, trellis)
 
 
 def _stage_a_select(pred, orig, num_cands, ls, bd_shift, lam_dq, lv, log2,

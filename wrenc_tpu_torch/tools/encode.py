@@ -1,13 +1,15 @@
 """CLI encoder of the PyTorch/CUDA port — the flags of
-wrenc_tpu.tools.encode, plus --device. Frame sharding (--dp above 1) is
-not ported and raises; the environment switches of the search
-(WRENC_COMMIT_ENGINE, WRENC_CHROMA_STAGE_A, WRENC_STAGE_A_SELECT) apply.
+wrenc_tpu.tools.encode, plus --device. --dp N shards stage A's frames
+over N cards (0, the default: every card, when there are more than one;
+with --device cpu, N copies of the CPU device); the environment switches
+of the search (WRENC_COMMIT_ENGINE, WRENC_CHROMA_STAGE_A,
+WRENC_STAGE_A_SELECT) apply.
 
     python -m wrenc_tpu_torch.tools.encode -i in.yuv -o out.vvc \
         --input-size 352x288 --output-size 352x288 --num-pictures 30 \
         --qp 32 [--max-split-depth 3] [--reconst rec.yuv] \
         [--extra-params K=V,...] [--search wavefront|scalar] \
-        [--device cuda|cpu]
+        [--dp N] [--device cuda|cpu]
 """
 import argparse
 import sys
@@ -43,17 +45,13 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8,
                     help="accepted for interface parity; stage-A chunks "
                          "follow the search's batch buckets")
-    ap.add_argument("--dp", type=int, default=1,
-                    help="frame sharding over N devices: not ported, only "
-                         "1 runs (the sharded search raises)")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="shard the frame batch over N devices (0 = all "
+                         "available when >1, 1 = single device; on the "
+                         "CPU, N copies of the CPU device)")
     ap.add_argument("--device", default="cuda",
                     help="torch device for stage A (default: cuda)")
     args = ap.parse_args(argv)
-
-    if args.dp not in (0, 1):
-        raise NotImplementedError(
-            "frame sharding (--dp) is not ported to wrenc_tpu_torch yet "
-            "(ROADMAP.md, 'Modules still to port')")
 
     from ..core.config import EncoderConfig
     from ..encoder import Encoder
@@ -70,7 +68,20 @@ def main(argv=None):
             dict(kv.split("=") for kv in args.extra_params.split(",")))
     if args.search == "wavefront":
         from ..search import WavefrontSearch
-        search = WavefrontSearch(cfg, device=args.device)
+        mesh = None
+        if args.dp != 1:
+            import torch
+            from ..dist import Mesh, cuda_devices
+            dev = torch.device(args.device)
+            devs = cuda_devices() if dev.type == "cuda" else [dev]
+            n = args.dp if args.dp > 0 else len(devs)
+            if dev.type != "cuda":
+                devs = [dev] * n
+            if n > 1 and len(devs) >= n:
+                mesh = Mesh(devs[:n], ("frame",))
+                print(f"frame-parallel over {n} devices", file=sys.stderr)
+        search = WavefrontSearch(cfg, mesh=mesh, device=(
+            args.device if mesh is None else None))
     else:
         from ..spec.encoder import ScalarEncoder
         search = ScalarEncoder(cfg)        # host only: --device unused
