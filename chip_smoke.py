@@ -44,8 +44,8 @@ Run from the root of a checkout. Phases, each fatal on failure:
      stage_a_trellis_rd=1 (K1's launches at the chroma shapes, counted
      the same way); then the device engine in its
      default configuration (device chroma), one 4-frame group, one
-     encode, its chroma stage A alone as above, and its scan alone (rank
-     steps, scan time);
+     encode, and its chroma stage A alone as above (its scan is not run
+     alone at 1080p: phase 8 does so at CIF);
   7. a 2-frame CIF encode per config (both stage-A configurations and
      chroma_stage_a='device') on the card equals the same encode on the
      CPU byte for byte, and the port's decoder reproduces the card's
@@ -63,7 +63,8 @@ Run from the root of a checkout. Phases, each fatal on failure:
      torch.cuda.set_sync_debug_mode("error") (no host-device sync inside
      the step loop), its steps and wall time; again under torch.profiler
      (the kernels' summed device time); again counting the PyTorch
-     operators it dispatches; again with CUDA events around every K1
+     operators it dispatches (per step); again with CUDA events around
+     every K1
      launch (summed device time, shapes); and K1 through
      trellis_rate_batch against its plain twin at the scan's shapes in
      one launch, with kernel-alone and plain times beside the bound;
@@ -88,15 +89,35 @@ Run from the root of a checkout. Phases, each fatal on failure:
      latter also under stage_a_trellis_rd=1 and with the device commit
      engine; card bytes == the single-device card bytes, decode ==
      reconstruction, fps and phase times, the stage-A kernel's launches
-     counted from 0 == chunks x cells x 4 sizes; 1080p on a (1, 2) mesh:
-     one chunk's stage A == one device's exactly, a 1-frame encode ==
-     the single-device bytes;
+     counted from 0 == chunks x cells x 4 sizes, and the kernel's device
+     time per cell (one cell's launches of one chunk in a CUDA graph)
+     beside its bound; 1080p on a (1, 2) mesh: one chunk's stage A == one
+     device's exactly, a 1-frame encode == the single-device bytes, K2's
+     device time per band cell;
  11. the kernels/ formulations (DCT-II's named entries, MTS, LFNST,
      dq_rate_scan / dq_rate_device, bdpcm_*, trellis_depquant /
-     trellis_depquant_pscan on K1) on a CUDA tensor == on the CPU.
-Prints the kernels' JSON line, then as its last line
-{"ok": true, "device": {...}}. Exits nonzero, printing no result, without
-a CUDA device or outside a checkout of the repo. Imports nothing of JAX.
+     trellis_depquant_pscan on K1) on a CUDA tensor == on the CPU;
+ 12. (run after 6) 4K: wrenc_tpu_torch.tools.bench1080p.main(--size
+     3840x2176 --frames 1), a warm-up encode, the timed encode and
+     decode == reconstruction, counted from 0; one 1-frame chunk's stage
+     A alone (luma + device chroma) counted from 0: K2 launched once per
+     luma size and chroma job, the card's peak memory for the chunk; K2
+     equal to its plain twin at each of those launches on their own
+     inputs, the plain twin's time, and K2's device time for the chunk's
+     launches in a CUDA graph beside the bound;
+ 13. the tools, each counted from 0: evaluate.evaluate_clips over the 16
+     CIF frames at QP 22 / 27 / 32 / 37 (decode == reconstruction at each
+     point, the QP 32 point's size == phase 4's default stream), the QP
+     27 point once more (a first-call cost shows as a faster second
+     encode) and dashboard.build_html of its summary; engine_ab.run_ab on 4 frames at
+     QP 32 within the tool's gate (byte-identical or a size delta under
+     0.02 %, both conformant); one tune.objective; scaling_bench over 1
+     and 2 cells (sharded == serial); multihost_smoke.run('cuda'): two
+     gloo processes, both layouts exact against one device.
+Prints each phase's wall time and the total, the kernels' JSON line,
+then as its last line {"ok": true, "device": {...}}. Exits nonzero,
+printing no result, without a CUDA device or outside a checkout of the
+repo. Imports nothing of JAX.
 """
 import contextlib
 import json
@@ -132,6 +153,10 @@ SIZES = (4, 8, 16, 32)
 N_CANDS = 6                      # K + 2 stage-A candidates per block
 CIF = (352, 288)
 P1080 = (1920, 1088)
+K4 = (3840, 2176)
+# an anchored clip's name: tune's objective scores frames against its
+# x265 points (the tools phase passes synthetic frames under it)
+ANCHORED = "bus_352x288_30fps_30fr.mp4"
 # the chunks whose chroma stage-A shapes K1 / K2 are checked at: (name,
 # geometry, frames per chunk); the 16- and 4-frame ones are the device
 # engine's buckets
@@ -672,7 +697,7 @@ def _chroma_case(log2, trellis):
             kq.lv_table_device(rm, True, trellis))
 
 
-def _chroma_bound(P, B, kname):
+def _launch_bound(P, B, kname):
     """(bytes ms, operations ms) of one launch at B blocks of P positions:
     int32 coefficients in, int16 levels and an f32 rate out."""
     return ((6 * P * B + 4 * B) / HBM_BYTES_S * 1e3,
@@ -732,7 +757,7 @@ def phase_chroma_kernels(errs):
                             f"cs={cs} B={B} ({name}): {e}")
                     errs[kname] = max(errs[kname], e)
                     cases += 1
-                bytes_ms, ops_ms = _chroma_bound(P, B, kname)
+                bytes_ms, ops_ms = _launch_bound(P, B, kname)
                 row[kname] = {
                     "device_ms": {lanes: _graph_ms(lambda: launch(lanes))
                                   for lanes in lanes_list},
@@ -1079,7 +1104,7 @@ def _proto(frames):
                                          "the NumPy commit's")
         device_ms = _graph_ms(lambda: [launch(*a) for a in recorded], n=2,
                               reps=5)
-        bounds = [_chroma_bound(a[0].shape[1] ** 2, a[0].shape[0],
+        bounds = [_launch_bound(a[0].shape[1] ** 2, a[0].shape[0],
                                 "dq_greedy") for a in recorded]
         for a in recorded:
             key = (a[0].shape[1], a[0].shape[0])
@@ -1108,7 +1133,7 @@ def _proto(frames):
                 raise AssertionError(f"K2 ({lanes} lanes) != plain at the "
                                      f"prototype's n={s} B={B}: {e}")
             cases += 1
-        bytes_ms, ops_ms = _chroma_bound(s * s, B, "dq_greedy")
+        bytes_ms, ops_ms = _launch_bound(s * s, B, "dq_greedy")
         rows.append({
             "n": s, "B": B, "launches": count, "lanes": kq.k2_lanes(lg, B),
             "device_ms": _graph_ms(lambda: launch(*a)),
@@ -1149,24 +1174,102 @@ def _psnr_y(recons, frames):
     return 10 * np.log10(255 ** 2 / mse)
 
 
-def _timed_encode(enc, frames, need):
-    """One encode between a reset of the launch counters and a read of
-    them, ending in a synchronize; fails when a kernel in `need` was not
-    launched."""
+def _counted(fn, need=()):
+    """fn() between a reset of the launch counters and a read of them,
+    each side synchronized; fails when a kernel in `need` was not
+    launched. Returns (fn's result, seconds, launches)."""
     import torch
     counters = _counters()
     for f in counters.values():
         f.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stream, recons = enc.encode(frames)
+    res = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
     for k in need:
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched")
+    return res, dt, launches
+
+
+def _timed_encode(enc, frames, need):
+    """One encode counted from 0 (_counted)."""
+    (stream, recons), dt, launches = _counted(lambda: enc.encode(frames),
+                                              need)
     return stream, recons, dt, launches
+
+
+def _helper(kname):
+    """(module, name) of `kname`'s launch helper, which the wrapper calls
+    and which does not count."""
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import trellis as ktr
+    return (ktr, "_launch_k1") if kname == "dq_trellis" else \
+        (kq, "_launch_k2")
+
+
+@contextlib.contextmanager
+def _recording(kname):
+    """Every call of `kname`'s launch helper inside the block, its
+    arguments kept (the tensors stay alive) in the list it yields."""
+    mod, name = _helper(kname)
+    launch, recorded = getattr(mod, name), []
+
+    def record(*a):
+        recorded.append(a)
+        return launch(*a)
+    setattr(mod, name, record)
+    try:
+        yield recorded
+    finally:
+        setattr(mod, name, launch)
+
+
+def _replay(kname, recorded):
+    """A function that launches the recorded calls again through the
+    helper (uncounted)."""
+    mod, name = _helper(kname)
+    launch = getattr(mod, name)
+    return lambda: [launch(*a) for a in recorded]
+
+
+def _launch_shapes(kname, recorded):
+    """(s, B, lanes) of each recorded launch, lanes by the launch rule."""
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.kernels import trellis as ktr
+    if kname == "dq_trellis":
+        return [(a[0][0][0].shape[1], a[0][0][0].shape[0],
+                 ktr.k1_lanes(a[0])) for a in recorded]
+    return [(a[0].shape[1], a[0].shape[0],
+             kq.k2_lanes(a[5], a[0].shape[0])) for a in recorded]
+
+
+def _bounds(kname, shapes):
+    """(bound ms, bytes ms, bound_by) of the launches at `shapes`."""
+    bounds = [_launch_bound(s * s, B, kname) for s, B, _ in shapes]
+    bytes_ms, ops_ms = (sum(b[i] for b in bounds) for i in (0, 1))
+    return (sum(max(b) for b in bounds), bytes_ms,
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _chroma_inputs(search, frames):
+    """The arguments of one chunk's _dispatch_chroma (the luma modes its
+    decide saw, the sizes, the device planes), from one dispatch and
+    decide."""
+    seen = {}
+    prefill = search._prefill_chroma_device
+
+    def spy(cache, luma_mode_b, sizes, F, dev_planes):
+        seen["args"] = (luma_mode_b, sizes, dev_planes)
+        return prefill(cache, luma_mode_b, sizes, F, dev_planes)
+    search._prefill_chroma_device = spy
+    try:
+        search._decide_chunk(search._dispatch_stage_a(frames))
+    finally:
+        del search._prefill_chroma_device
+    return seen["args"]
 
 
 def _chroma_chunk(search, frames, name):
@@ -1181,42 +1284,22 @@ def _chroma_chunk(search, frames, name):
     time per chunk beside its bound; a second dispatch counting the
     PyTorch operators; a third with its one fetch."""
     import torch
-    from wrenc_tpu_torch.kernels import quantize as kq
-    from wrenc_tpu_torch.kernels import trellis as ktr
-    seen = {}
-    prefill = search._prefill_chroma_device
-
-    def spy(cache, luma_mode_b, sizes, F, dev_planes):
-        seen["args"] = (luma_mode_b, sizes, dev_planes)
-        return prefill(cache, luma_mode_b, sizes, F, dev_planes)
-    search._prefill_chroma_device = spy
-    try:
-        search._decide_chunk(search._dispatch_stage_a(frames))
-    finally:
-        del search._prefill_chroma_device
-    lmb, sizes, devp = seen["args"]
+    lmb, sizes, devp = _chroma_inputs(search, frames)
     Fp = int(devp[0].shape[0])
     trellis = bool(search.rm.stage_a_trellis_rd)
     kname = "dq_trellis" if trellis else "dq_greedy"
-    mod, helper = (ktr, "_launch_k1") if trellis else (kq, "_launch_k2")
-    launch, recorded = getattr(mod, helper), []
-
-    def record(*a):
-        recorded.append(a)
-        return launch(*a)
     counters = _counters()
     torch.cuda.synchronize()
-    setattr(mod, helper, record)
-    for f in counters.values():
-        f.launches = 0
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        t1 = time.perf_counter()
-        search._dispatch_chroma(lmb, sizes, devp)
-        t2 = time.perf_counter()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-        setattr(mod, helper, launch)
+    with _recording(kname) as recorded:
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t1 = time.perf_counter()
+            search._dispatch_chroma(lmb, sizes, devp)
+            t2 = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     launches = {k: f.launches for k, f in counters.items()}
     torch.cuda.synchronize()
     t3 = time.perf_counter()
@@ -1227,14 +1310,9 @@ def _chroma_chunk(search, frames, name):
         raise AssertionError(f"{name}: chroma stage A launched {launches}, "
                              f"{kname}'s helper saw {len(recorded)}, want "
                              f"{want}")
-    if trellis:
-        shapes = [(a[0][0][0].shape[1], a[0][0][0].shape[0],
-                   ktr.k1_lanes(a[0])) for a in recorded]
-    else:
-        shapes = [(a[0].shape[1], a[0].shape[0],
-                   kq.k2_lanes(a[5], a[0].shape[0])) for a in recorded]
-    device_ms = _graph_ms(lambda: [launch(*a) for a in recorded], n=5)
-    bounds = [_chroma_bound(s * s, B, kname) for s, B, _ in shapes]
+    shapes = _launch_shapes(kname, recorded)
+    device_ms = _graph_ms(_replay(kname, recorded), n=5)
+    bound, bytes_ms, _ = _bounds(kname, shapes)
     with _OpCount() as oc:
         search._dispatch_chroma(lmb, sizes, devp)
     torch.cuda.synchronize()
@@ -1245,9 +1323,8 @@ def _chroma_chunk(search, frames, name):
     out = {"frames": Fp, "kernel": kname, "dispatch_ms": (t2 - t1) * 1e3,
            "dispatch_to_idle_ms": (t3 - t1) * 1e3,
            "with_fetch_ms": (t5 - t4) * 1e3, "launches": launches,
-           "shapes": shapes, "device_ms": device_ms,
-           "bound_ms": sum(max(b) for b in bounds),
-           "bytes_ms": sum(b[0] for b in bounds),
+           "shapes": shapes, "device_ms": device_ms, "bound_ms": bound,
+           "bytes_ms": bytes_ms,
            "ops": sum(ops.values()), "top_ops": dict(list(ops.items())[:12])}
     log(f"  chroma stage A, one {Fp}-frame chunk alone ({name}): dispatch "
         f"{out['dispatch_ms']:.1f} ms (under the sync debug mode 'error'), "
@@ -1264,8 +1341,8 @@ def phase_1080p():
     """4 synthetic 1920x1088 frames at QP 32. The default path (native
     engine, device chroma: 1-frame chunks), warm-up then timed; one
     chunk's chroma stage A alone; then the device engine in its default
-    configuration, one 4-frame group, one encode; its chroma stage A
-    alone and its scan alone."""
+    configuration, one 4-frame group, one encode, and its chroma stage A
+    alone."""
     from wrenc_tpu_torch.core.config import EncoderConfig
     from wrenc_tpu_torch.encoder import Encoder
     from wrenc_tpu_torch.search import WavefrontSearch
@@ -1322,15 +1399,6 @@ def phase_1080p():
     log(f"  phase_times (s): {json.dumps(dphases)}")
     d["chroma_one_chunk"] = _chroma_chunk(dsearch, frames,
                                           "1080p device engine")
-    sc, rec_scan = _scan(dsearch, frames)
-    if not all((rec_scan[k][c] == drecons[k][c]).all()
-               for k in range(len(frames)) for c in range(3)):
-        raise AssertionError("1080p device engine: scan alone != encode")
-    d["scan"] = sc
-    log(f"  scan alone: {sc['steps']} rank steps in {sc['seconds']:.3f} s = "
-        f"{sc['seconds'] / sc['steps'] * 1e3:.2f} ms per step (schedule "
-        f"{sc['schedule_seconds']:.3f} s, set-up {sc['setup_seconds']:.3f} "
-        f"s); its reconstruction equals the encode's")
     return out
 
 
@@ -1533,13 +1601,15 @@ def phase_device_commit(native_report):
         f"{100 * busy / prof['seconds']:.1f} % of the profiled scan, "
         f"{100 * busy / sc['seconds']:.1f} % of the unprofiled one"
         if busy else "  scan under torch.profiler: no device time traced")
+    t_ops = time.perf_counter()
     ops = _scan(search, frames, count_ops=True)[0]["ops"]
     n_ops = sum(ops.values())
     sc["ops_per_step"] = n_ops / sc["steps"]
     sc["top_ops"] = dict(list(ops.items())[:12])
     log(f"  scan step loop: {n_ops} PyTorch operators dispatched, "
         f"{n_ops / sc['steps']:.0f} per step; most frequent: "
-        f"{json.dumps(sc['top_ops'])}")
+        f"{json.dumps(sc['top_ops'])} "
+        f"({time.perf_counter() - t_ops:.1f} s with the counter)")
 
     # again, with CUDA events around every K1 launch: the device sits
     # idle through most of the scan, so each pair also times the host's
@@ -1754,6 +1824,13 @@ def phase_mesh():
             f"({chunks} chunks x {n_cells} cells x {len(SIZES)} sizes); "
             f"decode == reconstruction")
         log(f"  phase_times (s): {json.dumps(phases)}")
+        if warm_up:
+            c = out[name]["cell_kernel"] = _cell_times(search, frames[:8],
+                                                       kern)
+            log(f"  {kern} per cell of one chunk: (s, B, lanes) "
+                f"{c['shapes_per_cell']}, {c['device_ms_per_cell']:.4f} ms "
+                f"device time (a cell's launches in a CUDA graph), bound "
+                f"{c['bound_ms_per_cell']:.4f} ms ({c['bound_by']})")
 
     # 1080p on a (1, 2) mesh: 1088 = 2 x 17 CTU rows
     cfg = EncoderConfig(width=P1080[0], height=P1080[1], qp=32)
@@ -1814,8 +1891,216 @@ def phase_mesh():
     log(f"mesh 1080p (1, 2): 1-frame encode {dt:.3f} s, {len(stream)} "
         f"bytes == single-device (native chroma) card bytes; launches "
         f"{launches}")
+    c = out["1080p (1, 2), 1 frame"]["cell_kernel"] = _cell_times(
+        msearch, f5, "dq_greedy")
+    log(f"  dq_greedy per 1080p band cell: (s, B, lanes) "
+        f"{c['shapes_per_cell']}, {c['device_ms_per_cell']:.4f} ms device "
+        f"time, bound {c['bound_ms_per_cell']:.4f} ms ({c['bound_by']})")
     out["wall_seconds"] = time.perf_counter() - t_phase
     log(f"mesh phase: {out['wall_seconds']:.1f} s")
+    return out
+
+
+def _cell_times(search, frames, kname):
+    """One chunk's sharded stage A dispatch (frames: one chunk) with
+    `kname`'s launches recorded: one per cell and QT size, every cell at
+    the same shapes (asserted); the first cell's launches replayed in a
+    CUDA graph on its card, the kernel's device time per cell beside its
+    bound."""
+    import torch
+    with _recording(kname) as rec:
+        search._dispatch_stage_a(frames)
+    torch.cuda.synchronize()
+    n = len(SIZES)
+    shapes = _launch_shapes(kname, rec)
+    if len(rec) % n or any(shapes[i:i + n] != shapes[:n]
+                           for i in range(0, len(rec), n)):
+        raise AssertionError(f"{kname}: cells at different shapes {shapes}")
+    cell = rec[:n]
+    first = cell[0][0][0][0] if kname == "dq_trellis" else cell[0][0]
+    with torch.cuda.device(first.device):
+        device_ms = _graph_ms(_replay(kname, cell), n=5)
+    bound, bytes_ms, by = _bounds(kname, shapes[:n])
+    return {"kernel": kname, "cells": len(rec) // n,
+            "shapes_per_cell": shapes[:n],
+            "device_ms_per_cell": device_ms, "bound_ms_per_cell": bound,
+            "bytes_ms_per_cell": bytes_ms, "bound_by": by}
+
+
+def phase_4k():
+    """3840x2176, the 4K target class, on the default path: the port's
+    bench1080p.main(--size 3840x2176 --frames 1) (a warm-up encode, the
+    timed encode, decode == reconstruction), counted from 0 around the
+    call. Then one chunk's stage A alone, luma and device chroma (8.4 Mpx
+    is past the 0.5 Mpx device-chroma switch and the 3.5 Mpx chunk
+    budget, so a chunk is one frame): counted from 0, K2 launched once
+    per luma size and chroma job (_chroma_jobs), the card's peak memory
+    for the chunk; a second dispatch with K2's launches recorded: each
+    launch against the plain twin on its own inputs, exactly, the plain
+    twin's time, and the launches replayed in a CUDA graph (K2's device
+    time per chunk) beside the bound."""
+    import torch
+    from wrenc_tpu_torch.core.config import EncoderConfig
+    from wrenc_tpu_torch.kernels import quantize as kq
+    from wrenc_tpu_torch.search import WavefrontSearch
+    from wrenc_tpu_torch.tools import bench1080p
+    W, H = K4
+    rec, dt, launches = _counted(lambda: bench1080p.main(
+        ["--size", f"{W}x{H}", "--frames", "1", "--out",
+         os.path.join(ROOT, "results", "torch", "4k.json")]), ["dq_greedy"])
+    if not rec["conformance_roundtrip"]:
+        raise AssertionError("4K: decode != reconstruction")
+    out = {"bench": rec, "bench_seconds": dt,
+           "bench_launches": launches}
+    log(f"4K bench1080p --size {W}x{H} --frames 1: first encode "
+        f"{rec['first_compile_s']:.1f} s, timed encode {rec['encode_s']:.3f}"
+        f" s = {rec['fps']:.4f} fps, {rec['bytes']} bytes, decode == "
+        f"reconstruction; launches over both encodes {launches}; "
+        f"{dt:.1f} s in all")
+    log(f"  record: {json.dumps(rec)}")
+
+    frames = bench1080p.frames_1080p(1, W, H)
+    cfg = EncoderConfig(width=W, height=H, qp=32,
+                        entropy_coding_sync_enabled=True,
+                        entry_point_offsets_present=True)
+    search = WavefrontSearch(cfg)
+    if not search._chroma_device or search._buckets() != [1]:
+        raise AssertionError("4K: want device chroma and 1-frame chunks")
+    lmb, sizes, devp = _chroma_inputs(search, frames)
+    want = len(SIZES) + sum(n for _, _, n in _chroma_jobs((W, H), 1))
+
+    def chunk():
+        res = search._dispatch_stage_a(frames)
+        search._dispatch_chroma(lmb, sizes, devp)
+        return res
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, chunk_s, counts = _counted(chunk)
+    peak = torch.cuda.max_memory_allocated()
+    if counts["dq_greedy"] != want or counts["dq_trellis"] or \
+            counts["dq_trellis_batch"]:
+        raise AssertionError(f"4K chunk: launches {counts}, want dq_greedy "
+                             f"{want} ({len(SIZES)} luma sizes + chroma "
+                             f"jobs)")
+    with _recording("dq_greedy") as recd:
+        chunk()
+    torch.cuda.synchronize()
+    if len(recd) != want:
+        raise AssertionError(f"4K chunk: K2's helper saw {len(recd)}")
+    shapes = _launch_shapes("dq_greedy", recd)
+    err, plain_ms = 0.0, 0.0
+    for a in recd:
+        got = kq._launch_k2(*a)
+        plain = kq.greedy_depquant_plain(a[0], a[1], a[2], a[3], a[5], a[4])
+        e = _err(got, plain)
+        if e != 0:
+            raise AssertionError(f"K2 != plain at the 4K shape (s, B) = "
+                                 f"{a[0].shape[1]}, {a[0].shape[0]}: {e}")
+        err = max(err, e)
+        plain_ms += _time_ms(lambda: kq.greedy_depquant_plain(
+            a[0], a[1], a[2], a[3], a[5], a[4]), reps=1)
+    device_ms = _graph_ms(_replay("dq_greedy", recd), n=3, reps=5)
+    bound, bytes_ms, by = _bounds("dq_greedy", shapes)
+    out["chunk"] = {"launches": counts, "seconds": chunk_s,
+                    "shapes": shapes, "max_abs_err": err,
+                    "device_ms": device_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bytes_ms": bytes_ms,
+                    "bound_by": by, "memory_allocated_before": base,
+                    "max_memory_allocated": peak}
+    log(f"4K one chunk's stage A (luma + device chroma): launches {counts} "
+        f"({len(SIZES)} luma + {want - len(SIZES)} chroma K2); (s, B, "
+        f"lanes) {shapes}; K2 == plain at each, exactly; K2 "
+        f"{device_ms:.4f} ms device time per chunk (those launches in a "
+        f"CUDA graph), plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+        f"({by}); max_memory_allocated {peak / 2**30:.3f} GiB (before the "
+        f"chunk {base / 2**30:.3f} GiB)")
+    return out
+
+
+def phase_tools():
+    """The port's tools on the card, each step fatal on failure and
+    counted from 0: evaluate.evaluate_clips over the 16 CIF frames (seed
+    1) at QP 22 / 27 / 32 / 37 (its warm-up point first; each point
+    decodes == reconstruction; the QP 32 point's size equals the main
+    path's default stream), the QP 27 point once more, uncounted, and
+    dashboard.build_html of its summary; engine_ab.run_ab on 4 of them at QP 32 (both engines conformant,
+    within the tool's gate); one tune.objective evaluation (the synthetic
+    frames scored against an anchored clip's x265 points: it runs the
+    objective, it is no RD result); scaling_bench over 1 and 2 cells; and
+    multihost_smoke's two processes on the card (their own counters)."""
+    import math
+    from wrenc_tpu_torch.tools import (dashboard, engine_ab, evaluate,
+                                       multihost_smoke, scaling_bench, tune)
+    t_phase = time.perf_counter()
+    frames = synth_frames(16, *CIF, seed=1)
+    out = {}
+    summary, dt, launches = _counted(lambda: evaluate.evaluate_clips(
+        [("synthetic CIF seed 1", frames)], [22, 27, 32, 37]),
+        ["dq_greedy"])
+    points = summary["results"][0]["results"][0]["results"]
+    by_qp = {p["qp"]: p for p in points}
+    if by_qp[32]["bytes"] != len(STREAMS["default"]):
+        raise AssertionError(f"evaluate QP 32: {by_qp[32]['bytes']} bytes, "
+                             f"the main path {len(STREAMS['default'])}")
+    out["evaluate"] = {
+        "seconds": dt, "launches": launches,
+        "points": {q: {"bytes": p["bytes"],
+                       "psnr_avg": p["metrics"]["PSNR"]["summary"]["Avg"],
+                       "ssim_avg": p["metrics"]["SSIM"]["summary"]["Avg"],
+                       "fps": len(frames) / p["duration"]}
+                   for q, p in by_qp.items()}}
+    log(f"tools: evaluate, 16 CIF frames, decode == reconstruction at every "
+        f"QP, QP 32 bytes == the main path's: "
+        f"{json.dumps(out['evaluate']['points'])}; launches {launches}")
+    again = evaluate.run_point(frames, 27, 3, verify=False)[3]
+    out["evaluate"]["qp27_again_fps"] = len(frames) / again
+    log(f"tools: evaluate's QP 27 point again: {again:.3f} s, "
+        f"{len(frames) / again:.3f} fps (first: "
+        f"{out['evaluate']['points'][27]['fps']:.3f} fps)")
+    html = dashboard.build_html(summary)
+    if html.count("<svg") != 2:
+        raise AssertionError("dashboard: want the PSNR and SSIM plots")
+    out["dashboard_bytes"] = len(html)
+    report, dt, launches = _counted(lambda: engine_ab.run_ab(
+        [("synthetic CIF seed 1", frames[:4])], [32], 4),
+        ["dq_greedy", "dq_trellis_batch"])
+    if not engine_ab.passes_gate(report):
+        raise AssertionError(f"engine_ab: outside the gate {report}")
+    (row,) = report["points"]
+    out["engine_ab"] = {"seconds": dt, "launches": launches,
+                        "byte_identical": row["byte_identical"],
+                        "size_delta_pct": row["size_delta_pct"],
+                        "native": row["native"], "device": row["device"]}
+    nat, dev = row["native"], row["device"]
+    log(f"tools: engine_ab, 4 CIF frames QP 32: native {nat['bytes']} / "
+        f"device {dev['bytes']} bytes, byte identical "
+        f"{row['byte_identical']}, both conformant; time native "
+        f"{nat['time_s']:.2f} s, device {dev['time_s']:.2f} s; launches "
+        f"{launches}")
+    value, dt, launches = _counted(lambda: tune.objective(
+        {}, [(ANCHORED, frames[:4])], [26, 32, 38], 3), ["dq_greedy"])
+    if not math.isfinite(value):
+        raise AssertionError(f"tune objective {value}")
+    out["tune"] = {"objective": value, "seconds": dt, "launches": launches,
+                   "tunables": len(tune.tunable_names())}
+    log(f"tools: one tune objective (4 CIF frames, QP 26 / 32 / 38): "
+        f"{value!r} in {dt:.2f} s; launches {launches}")
+    res, dt, launches = _counted(lambda: scaling_bench.main((1, 2)),
+                                 ["dq_greedy"])
+    out["scaling_bench"] = {"seconds": dt, "launches": launches,
+                            "result": res}
+    log(f"tools: scaling_bench cells 1, 2 (sharded == serial): "
+        f"{json.dumps(res['by_devices'])}; {res['caveat']}; launches "
+        f"{launches}")
+    mh = multihost_smoke.run(device="cuda", timeout=300)
+    if not mh["ok"]:
+        raise AssertionError(f"multihost_smoke failed: {mh}")
+    out["multihost_smoke"] = mh
+    log(f"tools: multihost_smoke --device cuda: 2 gloo processes, layouts "
+        f"2x4 and 1x2, exact against one device on each rank, "
+        f"{mh['seconds']:.1f} s; workers' launches {mh['launches']}")
+    out["wall_seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1935,24 +2220,38 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     import wrenc_tpu_torch  # noqa: F401  (TF32 off)
-    build = phase_build()
-    errs = phase_kernel_checks()
-    errs["dq_trellis"] = max(errs["dq_trellis"], phase_k1_checks())
-    k2_err, k2_ops = phase_k2_checks()
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        log(f"phase {name}: {walls[name]:.1f} s (total "
+            f"{time.perf_counter() - t_start:.1f} s)")
+        return res
+
+    build = phase("build", phase_build)
+    errs = phase("kernel checks", phase_kernel_checks)
+    errs["dq_trellis"] = max(errs["dq_trellis"],
+                             phase("K1 checks", phase_k1_checks))
+    k2_err, k2_ops = phase("K2 checks", phase_k2_checks)
     errs["dq_greedy"] = max(errs["dq_greedy"], k2_err)
-    rows = phase_kernel_timing(errs)
-    sweep = phase_k1_lanes_sweep()
-    k2_sweep = phase_k2_lanes_sweep()
-    chroma = phase_chroma_kernels(errs)
-    phase_fma()
-    main_path = phase_main_path()
-    p1080 = phase_1080p()
-    card_cpu = phase_card_vs_cpu()
-    paths = phase_commit_paths()
-    dev = phase_device_commit(main_path["default"])
-    batch = phase_batch_check(dev)
-    mesh = phase_mesh()
-    item4 = phase_item4()
+    rows = phase("kernel timing", phase_kernel_timing, errs)
+    sweep = phase("K1 lanes sweep", phase_k1_lanes_sweep)
+    k2_sweep = phase("K2 lanes sweep", phase_k2_lanes_sweep)
+    chroma = phase("chroma kernels", phase_chroma_kernels, errs)
+    phase("fma", phase_fma)
+    main_path = phase("main path", phase_main_path)
+    p1080 = phase("1080p", phase_1080p)
+    p4k = phase("4K", phase_4k)
+    errs["dq_greedy"] = max(errs["dq_greedy"], p4k["chunk"]["max_abs_err"])
+    card_cpu = phase("card vs CPU", phase_card_vs_cpu)
+    paths = phase("commit paths", phase_commit_paths)
+    dev = phase("device engine", phase_device_commit, main_path["default"])
+    batch = phase("K1 batch check", phase_batch_check, dev)
+    mesh = phase("mesh", phase_mesh)
+    item4 = phase("kernels/ formulations", phase_item4)
+    tools = phase("tools", phase_tools)
 
     replaces = {"dq_trellis": "wrenc_tpu/kernels/trellis_pallas.py:55",
                 "dq_greedy": "wrenc_tpu/kernels/quantize.py:136"}
@@ -1987,6 +2286,14 @@ def main():
             per_path[f"mesh {n}"] = c["launches"]
     per_path["mesh 1080p (1, 2) stage A, one chunk"] = \
         mesh["1080p (1, 2) stage A, one chunk"]["mesh"]["launches"]
+    per_path["4K bench1080p, warm-up + timed encode"] = p4k["bench_launches"]
+    per_path["4K one chunk's stage A"] = p4k["chunk"]["launches"]
+    for n in ("evaluate", "engine_ab", "tune", "scaling_bench"):
+        per_path[f"tools: {n}"] = tools[n]["launches"]
+    per_path["tools: multihost_smoke (its two processes)"] = \
+        tools["multihost_smoke"]["launches"]
+    sharded = {n: c["cell_kernel"] for n, c in mesh.items()
+               if isinstance(c, dict) and "cell_kernel" in c}
     kernels = []
     for name in ("dq_trellis", "dq_greedy"):
         r = rows[name]
@@ -2005,6 +2312,8 @@ def main():
             "library_ms": None,
             "per_size": r["per_size"]})
         kernels[-1].update(
+            sharded_cells={n: c for n, c in sharded.items()
+                           if c["kernel"] == name},
             sm_clock_mhz=r["sm_clock_mhz"],
             device_ms_per_chunk=sum(v["device_ms"][v["lanes"]]
                                     for v in r["per_size"].values()),
@@ -2033,6 +2342,7 @@ def main():
                         "bound_ms": c["bound_ms"],
                         "bytes_ms": c["bytes_ms"]}
                     for n, c in chroma_chunks.items()},
+                at_4k=p4k["chunk"],
                 commit_prototype=paths["commit_frame_device"]["frames"],
                 commit_prototype_per_launch=paths["commit_frame_device"][
                     "per_launch"])
@@ -2070,6 +2380,9 @@ def main():
     log(f"device engine: {json.dumps(dev)}")
     log(f"mesh: {json.dumps(mesh)}")
     log(f"kernels/ formulations: {json.dumps(item4)}")
+    log(f"4K: {json.dumps(p4k)}")
+    log(f"tools: {json.dumps(tools)}")
+    log(f"phase wall times (s): {json.dumps(walls)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

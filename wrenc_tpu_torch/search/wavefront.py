@@ -36,7 +36,6 @@ and concatenated: bit-identical to one device. A mesh uploads no shared
 planes, so chroma stage A runs in the native library and the device
 commit engine uploads its own planes.
 """
-import contextlib
 import functools
 import os
 import time
@@ -44,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from ..dist.process_group import band_stage_a
 from ..entropy import native
 from ..entropy.structure import CtNode, CuDecision
 from ..kernels import intra_pred, np_ops, quantize as kq, refs, transforms
@@ -82,14 +82,6 @@ def _mesh_cells(mesh):
     for i, d in enumerate(mesh.devices.reshape(-1)):
         grid[i] = _indexed(resolve_device(d))
     return grid.reshape(shape['frame'], shape.get('row', 1))
-
-
-def _on(dev):
-    """Make `dev` the current card for the block (hand kernels launch on
-    the current device's stream); nothing for the CPU."""
-    if dev.type == 'cuda':
-        return torch.cuda.device(dev)
-    return contextlib.nullcontext()
 
 
 class WavefrontSearch:
@@ -401,15 +393,18 @@ class WavefrontSearch:
         self._phase('device_dispatch', time.perf_counter() - t0)
         return batch, sizes, res, dev_planes
 
-    def _dispatch_mesh(self, planes_y, sizes):
+    def _dispatch_mesh(self, planes_y, sizes, rank=0, world_size=1):
         """The sharded stage A of one chunk (planes_y: (F', H, W) uint8 on
         the host, padded to the bucket); does NOT block. The frames are
-        padded to a multiple of the frame axis by repeating the last one.
-        Each frame cell uploads its frames to its device; under a row axis
-        each (frame, row) cell uploads its band, takes the last row of the
-        band above as its halo (band 0: zeros) and runs the band stage A,
-        so the luma winners are selected on the host. Returns the cells'
-        device results, [[{s: outputs} per row band] per frame cell]."""
+        padded to a multiple of the frame axis by repeating the last one,
+        and the cells run through dist/process_group.band_stage_a: each
+        frame cell uploads its frames to its device; under a row axis each
+        (frame, row) cell uploads its band, takes the last row of the band
+        above as its halo (band 0: zeros) and runs the band stage A, so
+        the luma winners are selected on the host. In a torch.distributed
+        group (world_size > 1) this rank runs only its own cells. Returns
+        the cells' device results, [[{s: outputs} per row band] per frame
+        cell] (None for other ranks' cells)."""
         cfg = self.cfg
         W, H, log2_ctu = cfg.width, cfg.height, cfg.log2_ctu_size
         nf, nr = self._cells.shape
@@ -417,35 +412,21 @@ class WavefrontSearch:
         if pad:
             planes_y = np.concatenate(
                 [planes_y, np.repeat(planes_y[-1:], pad, axis=0)])
-        F_loc = len(planes_y) // nf
-        band_h = H // nr
-        out = []
-        for f in range(nf):
-            frames = planes_y[f * F_loc:(f + 1) * F_loc]
-            bands, above = [], None
-            for r in range(nr):
-                dev = self._cells[f, r]
-                a = self._stage_a_args(dev)
-                with _on(dev):
-                    band = self._upload(
-                        frames[:, r * band_h:(r + 1) * band_h], dev)
-                    if nr == 1:
-                        bands.append(fused_luma_stage_a(
-                            band, W, H, log2_ctu, tuple(sizes), a['K'],
-                            a['trellis'], a['ls'], a['bd'], a['lam_dq'],
-                            a['lv'], a['lam'], a['mats'], a['seltabs'],
-                            sel=self._select_device))
-                        continue
-                    halo = (torch.zeros((F_loc, W), dtype=torch.uint8,
-                                        device=dev) if above is None
-                            else above[:, -1, :].to(dev, non_blocking=True))
-                    bands.append(fused_luma_band_stage_a(
-                        band, halo, W, H, log2_ctu, tuple(sizes), nr, r,
-                        a['K'], a['trellis'], a['ls'], a['bd'],
-                        a['lam_dq'], a['lv'], a['lam'], a['mats']))
-                above = band
-            out.append(bands)
-        return out
+
+        def run_cell(band, halo, r, dev):
+            a = self._stage_a_args(dev)
+            if halo is None:
+                return fused_luma_stage_a(
+                    band, W, H, log2_ctu, tuple(sizes), a['K'],
+                    a['trellis'], a['ls'], a['bd'], a['lam_dq'], a['lv'],
+                    a['lam'], a['mats'], a['seltabs'],
+                    sel=self._select_device)
+            return fused_luma_band_stage_a(
+                band, halo, W, H, log2_ctu, tuple(sizes), nr, r, a['K'],
+                a['trellis'], a['ls'], a['bd'], a['lam_dq'], a['lv'],
+                a['lam'], a['mats'])
+        return band_stage_a(planes_y, self._cells, self._upload, run_cell,
+                            rank, world_size)
 
     def _upload(self, planes, dev=None):
         """Planes (or rows of small integers) to `dev` (None: the search's
@@ -1280,17 +1261,18 @@ def _ref_vectors(flat, src, fill, pi, ni, keep):
 
 
 def fused_luma_stage_a(planes, W, H, log2_ctu, sizes, K, trellis, ls, bd,
-                       lam_dq, lv, lam, mats, seltabs, sel=True):
+                       lam_dq, lv, lam, mats, seltabs=None, sel=True):
     """The whole luma stage A for one chunk (the JAX `_fused_luma_builder`).
     planes: (F, H, W) uint8 on the device. With on-device selection (sel)
     returns {s: (ranked cands int8 (F, N, K+2), best cost f32 (F, N),
     top-2 costs f32 (F, N, 2))}; without, {s: (cands int8 (F, N, K+2),
     base cost f32 (F, N, K+2))} for the host's _select_modes. All still on
-    the device."""
+    the device. seltabs (the selection's tables) is read only under sel."""
     F = planes.shape[0]
     consts = _luma_consts(W, H, log2_ctu, sizes, planes.device)
     flat = planes.to(torch.int32).reshape(F, H * W)
-    sc, mb67, po, idx_bits, rem_bits = seltabs
+    if sel:
+        sc, mb67, po, idx_bits, rem_bits = seltabs
     out = {}
     for s in sizes:
         N, top_mask = consts[s][0].shape[0], consts[s][5]
