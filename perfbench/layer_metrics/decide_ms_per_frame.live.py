@@ -1,0 +1,11 @@
+"""decide_ms_per_frame.live: host_decide (WavefrontSearch._decide_chunk: the Python QT decision and tree assembly) per frame."""
+from benchlib import readers
+
+LAYER = "search host half"
+UNIT = "ms/frame"
+SOURCE = "program_span"
+MOVES = "frame_latency_p95_ms"
+
+
+def read(record):
+    return readers.phase_ms_per_frame(record, ("host_decide",))
