@@ -8,6 +8,7 @@ only) runs when a caller passes it.
 """
 import numpy as np
 
+from . import trace
 from .bitstream import nal
 from .bitstream.bitio import BitWriter
 from .bitstream.headers import write_pps, write_ph, write_sh, write_sps, write_vps
@@ -30,27 +31,29 @@ class Encoder:
     def encode(self, frames):
         """frames: list of (Y, Cb, Cr) uint8 planes.
 
-        Returns (annexb_bytes, [reconstruction per frame]).
+        Returns (annexb_bytes, [reconstruction per frame]). The call is
+        the root span `encode` of the recorder (trace.call), the slices'
+        coding its span `host_entropy`.
         """
-        import time as _time
-        cfg = self.cfg
-        out = bytearray()
-        nal.write_nal(out, 1, nal.VPS_NUT, write_vps(cfg))
-        nal.write_nal(out, 9, nal.SPS_NUT, write_sps(cfg))
-        nal.write_nal(out, 9, nal.PPS_NUT, write_pps(cfg))
-        recons = []
-        if hasattr(self.search, "encode_frames"):
-            results = self.search.encode_frames(frames)
-        else:
-            results = [self.search.encode_frame(p) for p in frames]
-        t0 = _time.perf_counter()
-        for poc, (trees, recon) in enumerate(results):
-            nal.write_nal(out, 9, nal.PH_NUT, write_ph(cfg, poc))
-            rbsp = self.encode_slice(trees)
-            nal.write_nal(out, 9, nal.IDR_W_RADL, rbsp)
-            recons.append(tuple(p.astype(np.uint8) for p in recon))
-        self.phase_times = dict(getattr(self.search, 'phase_times', {}))
-        self.phase_times['host_entropy'] = _time.perf_counter() - t0
+        with trace.call():
+            cfg = self.cfg
+            out = bytearray()
+            nal.write_nal(out, 1, nal.VPS_NUT, write_vps(cfg))
+            nal.write_nal(out, 9, nal.SPS_NUT, write_sps(cfg))
+            nal.write_nal(out, 9, nal.PPS_NUT, write_pps(cfg))
+            recons = []
+            if hasattr(self.search, "encode_frames"):
+                results = self.search.encode_frames(frames)
+            else:
+                results = [self.search.encode_frame(p) for p in frames]
+            with trace.span('host_entropy') as sp:
+                for poc, (trees, recon) in enumerate(results):
+                    nal.write_nal(out, 9, nal.PH_NUT, write_ph(cfg, poc))
+                    rbsp = self.encode_slice(trees)
+                    nal.write_nal(out, 9, nal.IDR_W_RADL, rbsp)
+                    recons.append(tuple(p.astype(np.uint8) for p in recon))
+            self.phase_times = dict(getattr(self.search, 'phase_times', {}))
+            self.phase_times['host_entropy'] = sp.seconds
         return bytes(out), recons
 
     def encode_slice(self, trees):

@@ -22,6 +22,7 @@ import functools
 
 import numpy as np
 
+from .. import trace
 from ..core.tables import INTRA_ANGLE_TABLE, F_C, F_G, PDPC_WEIGHTS
 
 _REF_FILTER_MODES = frozenset([0, 2, 34, 66])  # subset reachable for squares
@@ -81,6 +82,7 @@ def _refx_umap(mode, size, angle, inv_angle):
 
 
 @functools.lru_cache(maxsize=None)
+@trace.table
 def build_mode_matrices(size, c_idx):
     """Stacked per-mode stage matrices for `size`x`size` blocks.
 

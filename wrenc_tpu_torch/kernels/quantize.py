@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..spec import quant as squant
 from . import _build
 
@@ -151,7 +152,9 @@ def greedy_depquant(t, ls, bd_shift, lam_dq, log2_n, lv_table):
     (1024,) f32 RD level-rate table. Returns (q (B,n,n) int16 stored
     levels, rate (B,) f32). CUDA tensors launch kernel K2, which reads t
     in place (each block row- or column-major, the blocks packed) and
-    writes q itself; CPU tensors take greedy_depquant_plain."""
+    writes q itself; CPU tensors take greedy_depquant_plain. Each call
+    counts one launch of its shape (trace.count)."""
+    trace.count('dq_greedy', t.device.type, (t,))
     if t.device.type == 'cpu':
         return greedy_depquant_plain(t, ls, bd_shift, lam_dq, log2_n,
                                      lv_table)

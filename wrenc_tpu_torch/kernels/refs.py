@@ -15,10 +15,12 @@ import functools
 
 import numpy as np
 
+from .. import trace
 from ..spec.avail import Availability
 
 
 @functools.lru_cache(maxsize=None)
+@trace.table
 def block_grid(width, height, size, c_idx=0):
     """Positions (component domain) of all aligned size x size blocks."""
     sh = 0 if c_idx == 0 else 1
@@ -28,6 +30,7 @@ def block_grid(width, height, size, c_idx=0):
 
 
 @functools.lru_cache(maxsize=None)
+@trace.table
 def avail_masks(width, height, size, c_idx=0, log2_ctu=5):
     """(N, L) availability of each reference sample of each aligned block."""
     av = Availability(width, height, log2_ctu)
@@ -109,6 +112,7 @@ def build_ref_vectors(plane, width, height, size, c_idx=0, log2_ctu=5,
 
 
 @functools.lru_cache(maxsize=None)
+@trace.table
 def subst_gather(width, height, size, c_idx=0, log2_ctu=5):
     """Static substitution-as-gather: for every aligned block, the flat
     plane index each (substituted) reference sample reads from.
@@ -150,6 +154,7 @@ def subst_gather(width, height, size, c_idx=0, log2_ctu=5):
 
 
 @functools.lru_cache(maxsize=None)
+@trace.table
 def filter121_indices(size):
     """Static (prev, next, passthrough) index arrays for the 121 reference
     filter on a unified u vector (cf. intra_mats.filter_ref_vector)."""

@@ -19,6 +19,7 @@ shapes only, passed to the kernel by value).
 """
 import torch
 
+from .. import trace
 from . import _build
 from .quantize import (_param, fill_job, from_coding_order, order_table,
                        param_rows, t_layout, table, to_coding_order,
@@ -39,7 +40,9 @@ ONE_LANE_MIN_B = 16384
 def trellis_rate(t, ls, bd_shift, lam_dq, lv_table, log2_n):
     """t: (B, n, n) int32 transform coefficients; ls/bd_shift scalars or
     (B,) per block; lam_dq (1024,) int32; lv_table (1024,) f32 (integral
-    values). Returns (q (B, n, n) int16, rate (B,) f32)."""
+    values). Returns (q (B, n, n) int16, rate (B,) f32). Each call counts
+    one launch of its shape (trace.count)."""
+    trace.count('dq_trellis', t.device.type, (t,))
     if t.device.type == 'cpu':
         return trellis_rate_plain(t, ls, bd_shift, lam_dq, lv_table, log2_n)
     if not t.is_cuda:
@@ -64,7 +67,9 @@ def trellis_rate_batch(jobs, lam_dq, lv_table):
     index-shifted tables for a one-hot MXU rate lookup, because gathers
     are slow on a TPU); K1 needs no counterpart of it, since its lanes
     compute the candidates on the chip from the 1024-entry tables. CPU
-    tensors take trellis_rate_batch_plain."""
+    tensors take trellis_rate_batch_plain. Each call counts one launch
+    of its jobs' shapes (trace.count)."""
+    trace.count('dq_trellis', jobs[0][0].device.type, [j[0] for j in jobs])
     if all(j[0].device.type == 'cpu' for j in jobs):
         return trellis_rate_batch_plain(jobs, lam_dq, lv_table)
     if not all(j[0].is_cuda for j in jobs):

@@ -38,11 +38,11 @@ commit engine uploads its own planes.
 """
 import functools
 import os
-import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..dist.process_group import band_stage_a
 from ..entropy import native
 from ..entropy.structure import CtNode, CuDecision
@@ -163,6 +163,10 @@ class WavefrontSearch:
                                        2.0)
         self._refine_margin = self.rm.split_refine_margin
         self._dev_args = {}
+        # summed seconds per phase of the last call (encode_frames resets
+        # it); stage A's device marks per chunk while the recorder is on
+        self.phase_times = {}
+        self._luma_marks = {}
 
     # ------------------------------------------------------------- stage A
     def _approx_mode_bits(self):
@@ -228,7 +232,8 @@ class WavefrontSearch:
         phase; the per-QG commit (qp_delta_pattern) reads instance state,
         so it runs in turn instead. The device commit engine commits
         several chunks in one scan (_commit_group_frames). Returns
-        [(trees, recon), ...]."""
+        [(trees, recon), ...]. Each phase is a span (trace.span) of the
+        call's root span and of its chunk; phase_times sums them."""
         from concurrent.futures import ThreadPoolExecutor
         self.phase_times = {}
         out = []
@@ -240,57 +245,72 @@ class WavefrontSearch:
         # the per-QG QP commit runs frame by frame on the host, in turn
         overlap = len(chunks) > 1 and not tuple(
             getattr(self.cfg, 'qp_delta_pattern', ()) or ())
-        pending = self._dispatch_stage_a(chunks[0])
-        with ThreadPoolExecutor(max_workers=1) as pool:
+        with trace.call(), ThreadPoolExecutor(max_workers=1) as pool:
+            pending = self._dispatch_stage_a(chunks[0], 0)
             prev = None
             gb, gt, gd = [], [], []
             for k, chunk in enumerate(chunks):
-                nxt = (self._dispatch_stage_a(chunks[k + 1])
+                nxt = (self._dispatch_stage_a(chunks[k + 1], k + 1)
                        if k + 1 < len(chunks) else None)
-                batch, trees, devp = self._decide_chunk(pending)
+                batch, trees, devp = self._decide_chunk(pending, k)
                 gb.extend(batch)
                 gt.extend(trees)
                 gd.append((devp, len(batch)))
                 pending = nxt
                 if len(chunks) == k + 1 or (k + 1) % group_n == 0:
                     if not overlap:
-                        t0 = time.perf_counter()
-                        recons = self._commit_all(gt, gb, _merge_devp(gd))
-                        self._phase('host_commit', time.perf_counter() - t0)
+                        with self._phase('host_commit', k):
+                            recons = self._commit_all(gt, gb,
+                                                      _merge_devp(gd))
                         out.extend(zip(gt, recons))
                     else:
                         if prev is not None:
                             out.extend(self._join_commit(prev))
-                        timing = {}
-                        fut = pool.submit(self._commit_timed, gb, gt, timing,
-                                          _merge_devp(gd))
-                        prev = (fut, gt, timing)
+                        fut = pool.submit(self._commit_work, gb, gt,
+                                          _merge_devp(gd),
+                                          dict(trace.context(), chunk=k))
+                        prev = (fut, gt, k)
                     gb, gt, gd = [], [], []
             if prev is not None:
                 out.extend(self._join_commit(prev))
         return out
 
-    def _commit_timed(self, batch, all_trees, timing, dev_planes=None):
-        t0 = time.perf_counter()
-        recons = self._commit_all(all_trees, batch, dev_planes)
-        timing['work'] = time.perf_counter() - t0
-        return recons
+    def _commit_work(self, batch, all_trees, dev_planes, ctx):
+        """One commit group in the worker thread, as the span
+        host_commit_work of the call and chunk in ctx (trace.context() of
+        the submitting thread, and the group's last chunk): (recons, its
+        own seconds)."""
+        with trace.span('host_commit_work', **ctx) as sp:
+            recons = self._commit_all(all_trees, batch, dev_planes)
+        return recons, sp.seconds
 
     def _join_commit(self, prev):
-        fut, trees, timing = prev
-        t0 = time.perf_counter()
-        recons = fut.result()
+        fut, trees, chunk = prev
         # host_commit = time this thread BLOCKED on the commit (the
         # overlap with the next chunk's decide is hidden);
         # host_commit_work = the commit's own wall time in the worker
-        self._phase('host_commit', time.perf_counter() - t0)
-        self._phase('host_commit_work', timing.get('work', 0.0))
+        with self._phase('host_commit', chunk):
+            recons, work_s = fut.result()
+        # added on this thread: the worker writes into no shared dict
+        self.phase_times['host_commit_work'] = (
+            self.phase_times.get('host_commit_work', 0.0) + work_s)
         return list(zip(trees, recons))
 
-    def _phase(self, name, dt):
-        if not hasattr(self, 'phase_times'):
-            self.phase_times = {}
-        self.phase_times[name] = self.phase_times.get(name, 0.0) + dt
+    def _phase(self, name, chunk):
+        """The span of phase `name` of chunk `chunk`; its seconds add
+        into phase_times."""
+        return trace.span(name, self.phase_times, chunk=chunk)
+
+    def _device_time(self, m0, m1):
+        """Stage A's device seconds between the trace.device_mark marks m0
+        and m1, where both were recorded, into
+        phase_times['stage_a_device'] and the innermost open span's
+        device_ms."""
+        dt = trace.device_seconds(m0, m1)
+        if dt is not None:
+            self.phase_times['stage_a_device'] = (
+                self.phase_times.get('stage_a_device', 0.0) + dt)
+            trace.annotate(device_ms=dt * 1e3)
 
     def _stage_a_args(self, dev=None):
         """Device-resident QP tables and scalars for stage A, uploaded once
@@ -356,8 +376,10 @@ class WavefrontSearch:
         return [1 << (cfg.log2_ctu_size - d)
                 for d in range(cfg.max_split_depth, -1, -1)]
 
-    def _dispatch_stage_a(self, frames):
-        """Dispatch the fused luma stage A for one chunk; does NOT block.
+    def _dispatch_stage_a(self, frames, chunk=0):
+        """Dispatch the fused luma stage A for chunk `chunk` of a call;
+        does NOT block. While the recorder is on, device marks around the
+        dispatch wait for _decide_chunk of the same chunk.
         Returns (batch, sizes, device results, device planes): the results
         are fused_luma_stage_a's dict, or under a mesh _dispatch_mesh's
         cells; the planes are (y, cb, cr) uint8 (F', H*W / H*W/4) for the
@@ -371,26 +393,28 @@ class WavefrontSearch:
         padded = batch + [batch[-1]] * (Fpad - F) if Fpad > F else batch
         sizes = self._sizes()
         if self.mesh is not None:
-            t0 = time.perf_counter()
-            res = self._dispatch_mesh(
-                np.stack([b[0] for b in padded]).astype(np.uint8), sizes)
-            self._phase('device_dispatch', time.perf_counter() - t0)
+            with self._phase('device_dispatch', chunk):
+                res = self._dispatch_mesh(
+                    np.stack([b[0] for b in padded]).astype(np.uint8), sizes)
             return batch, sizes, res, None
         a = self._stage_a_args()
-        t0 = time.perf_counter()
-        planes = self._upload([b[0] for b in padded])
-        dev_planes = None
-        if self._device_commit or self._chroma_device:
-            dev_planes = (planes.reshape(len(padded), -1),
-                          self._upload([b[1] for b in padded]).reshape(
-                              len(padded), -1),
-                          self._upload([b[2] for b in padded]).reshape(
-                              len(padded), -1))
-        res = fused_luma_stage_a(
-            planes, cfg.width, cfg.height, cfg.log2_ctu_size, tuple(sizes),
-            a['K'], a['trellis'], a['ls'], a['bd'], a['lam_dq'], a['lv'],
-            a['lam'], a['mats'], a['seltabs'], sel=self._select_device)
-        self._phase('device_dispatch', time.perf_counter() - t0)
+        with self._phase('device_dispatch', chunk):
+            m0 = trace.device_mark(self.device)
+            planes = self._upload([b[0] for b in padded])
+            dev_planes = None
+            if self._device_commit or self._chroma_device:
+                dev_planes = (planes.reshape(len(padded), -1),
+                              self._upload([b[1] for b in padded]).reshape(
+                                  len(padded), -1),
+                              self._upload([b[2] for b in padded]).reshape(
+                                  len(padded), -1))
+            res = fused_luma_stage_a(
+                planes, cfg.width, cfg.height, cfg.log2_ctu_size,
+                tuple(sizes), a['K'], a['trellis'], a['ls'], a['bd'],
+                a['lam_dq'], a['lv'], a['lam'], a['mats'], a['seltabs'],
+                sel=self._select_device)
+            if m0 is not None:
+                self._luma_marks[chunk] = (m0, trace.device_mark(self.device))
         return batch, sizes, res, dev_planes
 
     def _dispatch_mesh(self, planes_y, sizes, rank=0, world_size=1):
@@ -438,53 +462,52 @@ class WavefrontSearch:
             host = host.pin_memory()
         return host.to(dev, non_blocking=True)
 
-    def _decide_chunk(self, dispatched):
-        """Wait for a dispatched stage A and run the decide phases;
-        returns (batch, all_trees, device planes) ready for _commit_all."""
+    def _decide_chunk(self, dispatched, chunk=0):
+        """Wait for a dispatched stage A (of chunk `chunk`) and run the
+        decide phases; returns (batch, all_trees, device planes) ready for
+        _commit_all."""
         self.batch, sizes, res, dev_planes = dispatched
         F = len(self.batch)
         luma_mode_b = {}
         luma_cost_b = {}
         luma_cands_b = {}
         luma_cand_cost_b = {}
-        t0 = time.perf_counter()
-        res = _fetch_cells(res)                       # waits for the device
-        self._phase('device_stage_a', time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        for s in sizes:
-            if len(res[s]) == 3:           # device-side winner selection
-                rk, cost, c2 = res[s]
-                luma_mode_b[s] = rk[:F, :, 0].astype(np.int64)
-                luma_cost_b[s] = cost[:F]
-                luma_cands_b[s] = rk[:F].astype(np.int32)
-                luma_cand_cost_b[s] = c2[:F]
+        with self._phase('device_stage_a', chunk):
+            res = _fetch_cells(res)                   # waits for the device
+            self._device_time(*self._luma_marks.pop(chunk, (None, None)))
+        with self._phase('host_select', chunk):
+            for s in sizes:
+                if len(res[s]) == 3:       # device-side winner selection
+                    rk, cost, c2 = res[s]
+                    luma_mode_b[s] = rk[:F, :, 0].astype(np.int64)
+                    luma_cost_b[s] = cost[:F]
+                    luma_cands_b[s] = rk[:F].astype(np.int32)
+                    luma_cand_cost_b[s] = c2[:F]
+                else:
+                    cands, base = res[s]
+                    (luma_mode_b[s], luma_cost_b[s], luma_cands_b[s],
+                     luma_cand_cost_b[s]) = self._select_modes(
+                         s, cands[:F], base[:F])
+        with self._phase('host_chroma_rd', chunk):
+            chroma_cache = {}
+            if self._chroma_device and dev_planes is not None:
+                self._prefill_chroma_device(chroma_cache, luma_mode_b, sizes,
+                                            F, dev_planes)
             else:
-                cands, base = res[s]
-                (luma_mode_b[s], luma_cost_b[s], luma_cands_b[s],
-                 luma_cand_cost_b[s]) = self._select_modes(s, cands[:F],
-                                                           base[:F])
-        self._phase('host_select', time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        chroma_cache = {}
-        if self._chroma_device and dev_planes is not None:
-            self._prefill_chroma_device(chroma_cache, luma_mode_b, sizes, F,
-                                        dev_planes)
-        else:
-            self._prefill_chroma_cache(chroma_cache, luma_mode_b, sizes, F)
-        self._phase('host_chroma_rd', time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        all_trees = []
-        for fi in range(F):
-            self.orig = self.batch[fi]
-            self.luma_cands = {s: luma_cands_b[s][fi] for s in sizes}
-            self.luma_cand_costs = {s: luma_cand_cost_b[s][fi]
-                                    for s in sizes}
-            trees = self._decide_and_commit(
-                {s: luma_mode_b[s][fi] for s in sizes},
-                {s: luma_cost_b[s][fi] for s in sizes},
-                sizes, fi, luma_mode_b, chroma_cache)
-            all_trees.append(trees)
-        self._phase('host_decide', time.perf_counter() - t0)
+                self._prefill_chroma_cache(chroma_cache, luma_mode_b, sizes,
+                                           F)
+        with self._phase('host_decide', chunk):
+            all_trees = []
+            for fi in range(F):
+                self.orig = self.batch[fi]
+                self.luma_cands = {s: luma_cands_b[s][fi] for s in sizes}
+                self.luma_cand_costs = {s: luma_cand_cost_b[s][fi]
+                                        for s in sizes}
+                trees = self._decide_and_commit(
+                    {s: luma_mode_b[s][fi] for s in sizes},
+                    {s: luma_cost_b[s][fi] for s in sizes},
+                    sizes, fi, luma_mode_b, chroma_cache)
+                all_trees.append(trees)
         return self.batch, all_trees, dev_planes
 
     def _commit_all(self, all_trees, batch, dev_planes=None):
@@ -709,12 +732,16 @@ class WavefrontSearch:
                                dev_planes):
         """All chroma stage-A costs on the device (fused_chroma_stage_a),
         combined in f32 there, fetched in one copy and cut to the chunk's
-        F frames."""
+        F frames. While the recorder is on, its device time between marks
+        around the dispatch is read once the fetch has waited."""
+        m0 = trace.device_mark(self.device)
         res = self._dispatch_chroma(luma_mode_b, sizes, dev_planes)
+        m1 = trace.device_mark(self.device)
         parts = [(k, x) for k, v in res.items()
                  for x in (v if isinstance(v, tuple) else (v,))]
         flat = torch.cat([x.reshape(-1).to(torch.float32)
                           for _, x in parts]).cpu().numpy()   # waits
+        self._device_time(m0, m1)
         host, o = {}, 0
         for k, x in parts:
             host.setdefault(k, []).append(
@@ -1103,6 +1130,7 @@ def _mpm_scalar_tabs(rm, dep):
 
 
 @functools.lru_cache(maxsize=None)
+@trace.table
 def _luma_consts(W, H, log2_ctu, sizes, device):
     """Static per-geometry gather tables on the device (cached per
     process, geometry and device)."""
@@ -1119,6 +1147,7 @@ def _luma_consts(W, H, log2_ctu, sizes, device):
 
 
 @functools.lru_cache(maxsize=None)
+@trace.table
 def _chroma_consts(W, H, log2_ctu, css, device):
     """Static per-geometry chroma tables on the device (cached per process,
     geometry and device): per chroma size the substitution gather, the
@@ -1288,6 +1317,7 @@ def fused_luma_stage_a(planes, W, H, log2_ctu, sizes, K, trellis, ls, bd,
 
 
 @functools.lru_cache(maxsize=None)
+@trace.table
 def _band_tables(W, H, log2_ctu, sizes, nr):
     """The row-band gather tables of `nr` equal CTU-row bands (the JAX
     `_fused_luma_sharded_builder`'s): per size, (band 0's, the interior
@@ -1323,6 +1353,7 @@ def _band_tables(W, H, log2_ctu, sizes, nr):
 
 
 @functools.lru_cache(maxsize=None)
+@trace.table
 def _band_consts(W, H, log2_ctu, sizes, nr, interior, device):
     """_band_tables' tables of band 0 (interior False) or of the interior
     bands on the device, with the [1 2 1] filter's indices (cached per
