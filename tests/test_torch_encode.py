@@ -53,7 +53,9 @@ def test_config_from_dict_round_trips():
 
 
 @pytest.mark.parametrize("w,h,qp,trellis", [
-    (64, 64, 27, 0), (96, 64, 37, 0), (64, 64, 32, 1), (96, 64, 27, 1)])
+    (64, 64, 27, 0), (96, 64, 37, 0), (64, 64, 32, 1), (96, 64, 27, 1),
+    # 4 x 5 CTUs: the commit's row wavefront runs rows on several threads
+    (160, 128, 32, 0)])
 def test_encode_bytes_match_jax(w, h, qp, trellis):
     cfg = _cfg(w, h, qp, trellis)
     frames = [synth_frame(w, h, seed=qp + k) for k in range(2)]

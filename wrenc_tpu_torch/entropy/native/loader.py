@@ -11,6 +11,7 @@ import fcntl
 import os
 import subprocess
 import threading
+from typing import NamedTuple
 
 import numpy as np
 
@@ -315,36 +316,57 @@ def _rd_consts(cfg, with_headers=False):
     return np.array(vals, dtype=np.float64)
 
 
-def commit_frames_tree_native(cfg, origs, all_trees, ls_tab, bd_tab, lam_dq,
-                              trellis, lv_trellis, n_threads=0):
-    """Native commit with mode re-decision AND QT split refinement.
+CPU_MAX = "/sys/fs/cgroup/cpu.max"
 
-    all_trees: per-frame CtNode tree lists. Nodes with `refine=True` carry
-    an `alt_cu` merged-leaf alternative; the committer evaluates both the
-    leaf and the split subtree on the true reconstruction and keeps the
-    cheaper (the reference's snapshot/rollback discipline,
-    block_splitter.rs:1079-1152). Trees are updated in place to the chosen
-    structure; cu modes/coeffs are filled in. Returns recon planes.
-    """
-    import os
-    from ...core import tables
-    lib = _get()
-    F = len(origs)
-    W, H = cfg.width, cfg.height
-    oy = np.ascontiguousarray(np.stack([o[0] for o in origs]), dtype=np.int32)
-    ocb = np.ascontiguousarray(np.stack([o[1] for o in origs]), dtype=np.int32)
-    ocr = np.ascontiguousarray(np.stack([o[2] for o in origs]), dtype=np.int32)
-    ry = np.zeros_like(oy)
-    rcb = np.zeros_like(ocb)
-    rcr = np.zeros_like(ocr)
 
-    # serialize: pre-order node stream per frame + flat CU list
+def usable_cores(cpu_max=CPU_MAX):
+    """The cores this process may use: its CPU affinity, capped by the
+    cgroup (v2) CPU quota in `cpu_max` where one is set, rounded up."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        with open(cpu_max) as f:
+            quota, period = f.read().split()[:2]
+        if quota == "max":
+            return n
+        return max(1, min(n, -(-int(quota) // int(period))))
+    except (OSError, ValueError):
+        return n
+
+
+class CommitStreams(NamedTuple):
+    """The tree commit's input streams (serialize_commit_trees)."""
+    nodes: np.ndarray         # pre-order: CU index; -1 split; -2 refine
+    ctu_node_off: np.ndarray  # (F * CTUs + 1,) each CTU's start in nodes
+    ctu_dec_off: np.ndarray   # (F * CTUs + 1,) ... in the refine decisions
+    meta: np.ndarray          # (CUs, 6) x, y, log2, tree, luma, chroma mode
+    cands: np.ndarray         # (CUs, n) candidate luma modes, -1 padded
+    coeff_off: np.ndarray     # (CUs * 3,) into the coefficients, -1 absent
+    n_coeffs: int
+    cu_objs: list             # the CU objects, in the order of meta
+
+
+class CommitResult(NamedTuple):
+    """What the native tree commit writes (commit_tree_streams)."""
+    recons: list              # per frame (Y, Cb, Cr) int32 planes
+    coeffs: np.ndarray        # int16, at CommitStreams.coeff_off
+    modes: np.ndarray         # (CUs * 2,) luma, chroma mode per CU
+    decisions: np.ndarray     # int8 per refine node: 0 leaf, 1 split kept
+    threads: int              # threads the wavefront used
+    busy_s: float             # their summed busy seconds
+    lag_wait_s: float         # their summed seconds blocked on the row above
+
+
+def serialize_commit_trees(all_trees, n_ctus):
+    """Flatten per-frame CtNode tree lists (one root per CTU, raster
+    order) into the tree commit's CommitStreams, recording where each
+    CTU's nodes and refine decisions start."""
     nodes = []
-    node_off = [0]
-    dec_count = [0]
+    ctu_node_off = [0]
+    ctu_dec_off = [0]
     cu_objs = []
     meta = []
     cand_rows = []
+    ndec = 0
 
     def add_cu(cu):
         idx = len(cu_objs)
@@ -356,26 +378,29 @@ def commit_frames_tree_native(cfg, origs, all_trees, ls_tab, bd_tab, lam_dq,
                          else (cu.luma_mode,))
         return idx
 
-    ndec = 0
+    def walk(n):
+        nonlocal ndec
+        if getattr(n, 'refine', False):
+            nodes.append(-2)
+            nodes.append(add_cu(n.alt_cu))
+            ndec += 1
+            for ch in n.children:
+                walk(ch)
+        elif n.split:
+            nodes.append(-1)
+            for ch in n.children:
+                walk(ch)
+        else:
+            nodes.append(add_cu(n.cu))
+
     for trees in all_trees:
-        def walk(n):
-            nonlocal ndec
-            if getattr(n, 'refine', False):
-                nodes.append(-2)
-                nodes.append(add_cu(n.alt_cu))
-                ndec += 1
-                for ch in n.children:
-                    walk(ch)
-            elif n.split:
-                nodes.append(-1)
-                for ch in n.children:
-                    walk(ch)
-            else:
-                nodes.append(add_cu(n.cu))
+        if len(trees) != n_ctus:
+            raise ValueError(f"{len(trees)} CTU trees in a frame of "
+                             f"{n_ctus} CTUs")
         for t in trees:
             walk(t)
-        node_off.append(len(nodes))
-        dec_count.append(ndec)
+            ctu_node_off.append(len(nodes))
+            ctu_dec_off.append(ndec)
 
     lens = np.fromiter((len(r) for r in cand_rows), dtype=np.int64,
                        count=len(cand_rows))
@@ -399,16 +424,37 @@ def commit_frames_tree_native(cfg, origs, all_trees, ls_tab, bd_tab, lam_dq,
     ], axis=1).reshape(-1)
     ends = np.cumsum(sizes3)
     coeff_off = np.where(sizes3 > 0, ends - sizes3, -1).astype(np.int64)
-    total = int(ends[-1]) if len(ends) else 0
+    return CommitStreams(
+        np.array(nodes, dtype=np.int32),
+        np.array(ctu_node_off, dtype=np.int64),
+        np.array(ctu_dec_off, dtype=np.int64),
+        meta, cands, coeff_off, int(ends[-1]) if len(ends) else 0, cu_objs)
 
-    nodes = np.array(nodes, dtype=np.int32)
-    node_off = np.array(node_off, dtype=np.int64)
-    dec_off = np.array(dec_count, dtype=np.int64)
-    coeffs = np.zeros(max(total, 1), dtype=np.int16)
-    modes_out = np.zeros(max(len(cu_objs), 1) * 2, dtype=np.int32)
-    decisions = np.zeros(max(ndec, 1), dtype=np.int8)
+
+def commit_tree_streams(cfg, origs, streams, ls_tab, bd_tab, lam_dq,
+                        trellis, lv_trellis, n_threads=0):
+    """Run the native tree commit (wrenc_commit_frames_tree) on
+    CommitStreams; reads its inputs only. The frames' CTU rows run as a
+    wavefront over `n_threads` threads (0: `usable_cores()`), at most one
+    per row; the output does not depend on the count. Returns a
+    CommitResult."""
+    from ...core import tables
+    lib = _get()
+    F = len(origs)
+    W, H = cfg.width, cfg.height
+    oy = np.ascontiguousarray(np.stack([o[0] for o in origs]), dtype=np.int32)
+    ocb = np.ascontiguousarray(np.stack([o[1] for o in origs]), dtype=np.int32)
+    ocr = np.ascontiguousarray(np.stack([o[2] for o in origs]), dtype=np.int32)
+    ry = np.zeros_like(oy)
+    rcb = np.zeros_like(ocb)
+    rcr = np.zeros_like(ocr)
+    n_cus = len(streams.meta)
+    coeffs = np.zeros(max(streams.n_coeffs, 1), dtype=np.int16)
+    modes_out = np.zeros(max(n_cus, 1) * 2, dtype=np.int32)
+    decisions = np.zeros(max(int(streams.ctu_dec_off[-1]), 1), dtype=np.int8)
     rd_consts = _rd_consts(cfg, with_headers=True)
     lv = np.ascontiguousarray(lv_trellis, dtype=np.int64)
+    stats = np.zeros(4, dtype=np.float64)
 
     def c32(a):
         return np.ascontiguousarray(a, dtype=np.int32)
@@ -418,46 +464,79 @@ def commit_frames_tree_native(cfg, origs, all_trees, ls_tab, bd_tab, lam_dq,
     bd_tab = c32(bd_tab)
     lam = c32(lam_dq)
     if n_threads <= 0:
-        n_threads = min(F, os.cpu_count() or 1)
+        n_threads = usable_cores()
 
     lib.wrenc_commit_frames_tree(
         ctypes.c_int(W), ctypes.c_int(H), ctypes.c_int(cfg.log2_ctu_size),
         ctypes.c_int(F), ctypes.c_int(n_threads),
         _i32p(oy), _i32p(ocb), _i32p(ocr),
         _i32p(ry), _i32p(rcb), _i32p(rcr),
-        _i32p(nodes), _i64p(node_off),
-        _i32p(meta), _i64p(coeff_off),
+        _i32p(streams.nodes), _i64p(streams.ctu_node_off),
+        _i32p(streams.meta), _i64p(streams.coeff_off),
         coeffs.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
         _i32p(ls_tab), _i32p(bd_tab), _i32p(lam),
         ctypes.c_int(1 if cfg.dep_quant_enabled else 0),
         ctypes.c_int(1 if trellis else 0),
         ctypes.c_int(1 if cfg.cclm_enabled else 0),
-        _i32p(cands), ctypes.c_int(n_cand),
+        _i32p(streams.cands), ctypes.c_int(streams.cands.shape[1]),
         rd_consts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
         _i64p(lv),
         _i32p(modes_out),
         decisions.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-        _i64p(dec_off),
+        _i64p(streams.ctu_dec_off),
         _i32p(dcts[0]), _i32p(dcts[1]), _i32p(dcts[2]), _i32p(dcts[3]),
         _i32p(c32(tables.INTRA_ANGLE_TABLE)), _i32p(c32(tables.F_C)),
         _i32p(c32(tables.F_G)), _i32p(c32(tables.PDPC_WEIGHTS)),
-        _i32p(c32(tables.CCLM_DIV_SIG_TABLE)))
+        _i32p(c32(tables.CCLM_DIV_SIG_TABLE)),
+        stats.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    if stats[3]:
+        raise RuntimeError(f"{int(stats[3])} CTU walks did not end at the "
+                           "next CTU's stream offset")
+    return CommitResult([(ry[f], rcb[f], rcr[f]) for f in range(F)],
+                        coeffs, modes_out, decisions, int(stats[0]),
+                        float(stats[1]), float(stats[2]))
+
+
+def commit_frames_tree_native(cfg, origs, all_trees, ls_tab, bd_tab, lam_dq,
+                              trellis, lv_trellis, n_threads=0):
+    """Native commit with mode re-decision AND QT split refinement.
+
+    all_trees: per-frame CtNode tree lists. Nodes with `refine=True` carry
+    an `alt_cu` merged-leaf alternative; the committer evaluates both the
+    leaf and the split subtree on the true reconstruction and keeps the
+    cheaper (the reference's snapshot/rollback discipline,
+    block_splitter.rs:1079-1152). Trees are updated in place to the chosen
+    structure; cu modes/coeffs are filled in. Returns recon planes.
+
+    The CTU-row wavefront's threads, their summed busy and lag-wait
+    seconds go onto the caller's open trace span as commit_threads,
+    commit_busy_s and commit_lag_wait_s.
+    """
+    from ... import trace
+    n_ctus = ((cfg.width >> cfg.log2_ctu_size)
+              * (cfg.height >> cfg.log2_ctu_size))
+    streams = serialize_commit_trees(all_trees, n_ctus)
+    res = commit_tree_streams(cfg, origs, streams, ls_tab, bd_tab, lam_dq,
+                              trellis, lv_trellis, n_threads)
+    trace.annotate(commit_threads=res.threads, commit_busy_s=res.busy_s,
+                   commit_lag_wait_s=res.lag_wait_s)
 
     # modes + coeffs back into every CU object (winners referenced by trees)
-    for i, cu in enumerate(cu_objs):
+    coeff_off = streams.coeff_off
+    for i, cu in enumerate(streams.cu_objs):
         if cu.tree != 'C':
-            cu.luma_mode = int(modes_out[i * 2])
+            cu.luma_mode = int(res.modes[i * 2])
         if cu.tree != 'L':
-            cu.chroma_mode = int(modes_out[i * 2 + 1])
+            cu.chroma_mode = int(res.modes[i * 2 + 1])
         for c in range(3):
             off = coeff_off[i * 3 + c]
             if off < 0:
                 continue
             s = 1 << (cu.log2 - (0 if c == 0 else 1))
-            cu.coeffs[c] = coeffs[off:off + s * s].reshape(s, s).copy()
+            cu.coeffs[c] = res.coeffs[off:off + s * s].reshape(s, s).copy()
 
     # apply refine decisions (same pre-order walk)
-    it = iter(decisions)
+    it = iter(res.decisions)
 
     def apply(n):
         if getattr(n, 'refine', False):
@@ -476,7 +555,7 @@ def commit_frames_tree_native(cfg, origs, all_trees, ls_tab, bd_tab, lam_dq,
     for trees in all_trees:
         for t in trees:
             apply(t)
-    return [(ry[f], rcb[f], rcr[f]) for f in range(F)]
+    return res.recons
 
 
 def chroma_stage_a_native(cfg, origs, dmodes, scipu_modes, ls_c, bd_c,

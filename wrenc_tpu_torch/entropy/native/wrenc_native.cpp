@@ -907,7 +907,9 @@ extern "C" int64_t wrenc_encode_slice(
 // NumPy wavefront commit pass on the host hot path.
 #include <atomic>
 #include <chrono>
+#include <condition_variable>
 #include <cstdlib>
+#include <mutex>
 #include <thread>
 
 namespace {
@@ -1590,9 +1592,10 @@ struct RdCommitter {
   const RdConsts* rd;
   bool prof = false;
   // MPM state at 4x4 granularity (coding order), as in spec/encoder.py
-  // _search_mpm / SliceCoder::mpm_list
-  std::vector<int32_t> mode_map;
-  std::vector<uint8_t> mode_set;
+  // _search_mpm / SliceCoder::mpm_list: the frame's maps, shared by the
+  // threads of its CTU rows (each CU writes only its own area)
+  int32_t* mode_map = nullptr;
+  uint8_t* mode_set = nullptr;
 
   int n4w() const { return fc.W >> 2; }
 
@@ -2126,28 +2129,89 @@ struct RdCommitter {
 
 }  // namespace
 
-// Commit with mode re-decision AND QT split refinement. The per-frame
+// The CTU-row wavefront of wrenc_commit_frames_tree. CTU (r, c) reads the
+// reconstruction of CTUs (r, c-1) and (r-1, c-1 .. c+1) only: reference
+// samples and CCLM neighbours reach at most twice the CU's width to the
+// right on the row above (avail() refuses the row below), and the MPM list
+// and refinement snapshots stay inside the CU's own CTU and the CTU to its
+// left. So a row may run CTU c once the row above has finished c + 2 of its
+// CTUs, and every CU still sees exactly the samples of a raster-order walk.
+namespace {
+
+struct RowProgress {
+  std::atomic<int> done{0};  // CTUs of the row finished
+  std::mutex m;
+  std::condition_variable cv;
+};
+
+// blocks (no spinning: other host work shares the cores) until `row` has
+// finished `need` CTUs; acquire pairs with finish()'s release, so the
+// row's samples and mode maps are visible after it returns
+inline void wait_row(RowProgress& row, int need) {
+  if (row.done.load(std::memory_order_acquire) >= need) return;
+  std::unique_lock<std::mutex> lk(row.m);
+  row.cv.wait(lk, [&] {
+    return row.done.load(std::memory_order_acquire) >= need;
+  });
+}
+
+// stored under the mutex, so a waiter between its check and its sleep
+// cannot miss the wake-up
+inline void finish(RowProgress& row, int n_done) {
+  {
+    std::lock_guard<std::mutex> lk(row.m);
+    row.done.store(n_done, std::memory_order_release);
+  }
+  row.cv.notify_all();
+}
+
+inline double seconds_between(std::chrono::steady_clock::time_point a,
+                              std::chrono::steady_clock::time_point b) {
+  return std::chrono::duration<double>(b - a).count();
+}
+
+}  // namespace
+
+// Commit with mode re-decision AND QT split refinement. Each CTU's
 // decision tree arrives as a pre-order node stream (tag >= 0: leaf CU
 // index; -1: split; -2: refine node, followed by the merged-leaf CU index
-// and then the children subtree). decisions_out receives one byte per
-// refine node in pre-order (0 = merged leaf kept, 1 = split kept).
-// rd_consts has 14 doubles (the 12 of wrenc_commit_frames_rd plus
-// header_bits and chroma_header_bits).
+// and then the children subtree); CTU k (frame-major, raster order in the
+// frame) starts at ctu_node_off[k] and ends at ctu_node_off[k + 1].
+// decisions_out receives one byte per refine node in pre-order (0 = merged
+// leaf kept, 1 = split kept), CTU k's from ctu_dec_off[k]. rd_consts has 17
+// doubles (the 12 of the rate model, header_bits, chroma_header_bits and
+// the three commit switches).
+//
+// Work is one task per CTU row of a frame, handed out row-major across the
+// frames ((row 0, frame 0), (row 0, frame 1), ..., (row 1, frame 0), ...)
+// to min(n_threads, tasks) threads, the caller's among them. Before CTU c
+// of row r a thread waits until row r - 1 of the same frame has finished
+// min(c + 2, columns) CTUs. This cannot deadlock: tasks are taken in
+// order and a row waits only on the row above, a lower task already
+// taken, so the lowest unfinished task never waits and always advances.
+// Each thread has its own RdCommitter (its prediction scratch is mutable);
+// a frame's threads share its planes and mode maps, and every CU writes
+// its coefficients, modes and decisions to offsets fixed by the caller.
+// stats_out: threads used, their summed busy seconds, their summed
+// seconds blocked on the row above, and the number of CTUs whose walk did
+// not end where the next CTU's stream starts (0 unless the offsets are
+// wrong).
 extern "C" void wrenc_commit_frames_tree(
     int W, int H, int log2_ctu, int n_frames, int n_threads,
     const int32_t* orig_y, const int32_t* orig_cb, const int32_t* orig_cr,
     int32_t* rec_y, int32_t* rec_cb, int32_t* rec_cr,
-    const int32_t* nodes, const int64_t* node_off,
+    const int32_t* nodes, const int64_t* ctu_node_off,
     const int32_t* cu_meta,
     const int64_t* coeff_off, int16_t* coeffs_out,
     const int32_t* ls_tab, const int32_t* bd_tab, const int32_t* lam_dq,
     int dep_quant, int trellis, int cclm_enabled,
     const int32_t* cands, int n_cand, const double* rd_consts,
     const int64_t* lv, int32_t* modes_out,
-    int8_t* decisions_out, const int64_t* dec_off,
+    int8_t* decisions_out, const int64_t* ctu_dec_off,
     const int32_t* dct4, const int32_t* dct8, const int32_t* dct16,
     const int32_t* dct32, const int32_t* angle_tab, const int32_t* fc,
-    const int32_t* fg, const int32_t* pdpc_w, const int32_t* cclm_div) {
+    const int32_t* fg, const int32_t* pdpc_w, const int32_t* cclm_div,
+    double* stats_out) {
   CommitTabs tabs;
   tabs.dct[0] = dct4; tabs.dct[1] = dct8; tabs.dct[2] = dct16;
   tabs.dct[3] = dct32;
@@ -2180,46 +2244,83 @@ extern "C" void wrenc_commit_frames_tree(
   int ysz = W * H, csz = (W / 2) * (H / 2);
   int cs = 1 << log2_ctu;
   int n_cols = W / cs, n_rows = H / cs;
+  int n4 = (W >> 2) * (H >> 2);
   const bool prof = std::getenv("WRENC_COMMIT_PROF") != nullptr;
-  auto run_frame = [&](int f) {
+  std::vector<int32_t> mode_map((size_t)n_frames * n4, 0);
+  std::vector<uint8_t> mode_set((size_t)n_frames * n4, 0);
+  const int n_tasks = n_frames * n_rows;
+  std::vector<RowProgress> progress(n_tasks);  // [frame][row]
+  std::atomic<int> next_task{0};
+  std::atomic<int64_t> bad_walks{0};
+  const int n_workers = std::max(1, std::min(n_threads, n_tasks));
+  std::vector<double> busy_s(n_workers, 0.0), wait_s(n_workers, 0.0);
+
+  auto worker = [&](int w) {
+    using clk = std::chrono::steady_clock;
+    const auto t_start = clk::now();
     RdCommitter rdc;
     rdc.prof = prof;
     rdc.fc.W = W; rdc.fc.H = H; rdc.fc.log2_ctu = log2_ctu;
     rdc.fc.tabs = &tabs;
     rdc.rd = &rc;
-    rdc.fc.orig[0] = orig_y + (int64_t)f * ysz;
-    rdc.fc.orig[1] = orig_cb + (int64_t)f * csz;
-    rdc.fc.orig[2] = orig_cr + (int64_t)f * csz;
-    rdc.fc.plane[0] = rec_y + (int64_t)f * ysz;
-    rdc.fc.plane[1] = rec_cb + (int64_t)f * csz;
-    rdc.fc.plane[2] = rec_cr + (int64_t)f * csz;
-    rdc.mode_map.assign((W >> 2) * (H >> 2), 0);
-    rdc.mode_set.assign((W >> 2) * (H >> 2), 0);
     RdCommitter::TreeCtx t;
-    t.nodes = nodes + node_off[f];
     t.cu_meta = cu_meta;
     t.cands = cands;
     t.n_cand = n_cand;
     t.coeff_off = coeff_off;
     t.coeffs = coeffs_out;
     t.modes_out = modes_out;
-    t.decisions = decisions_out + dec_off[f];
-    for (int r = 0; r < n_rows; ++r)
-      for (int col = 0; col < n_cols; ++col)
+    int k;
+    while ((k = next_task.fetch_add(1)) < n_tasks) {
+      const int r = k / n_frames, f = k % n_frames;
+      rdc.fc.orig[0] = orig_y + (int64_t)f * ysz;
+      rdc.fc.orig[1] = orig_cb + (int64_t)f * csz;
+      rdc.fc.orig[2] = orig_cr + (int64_t)f * csz;
+      rdc.fc.plane[0] = rec_y + (int64_t)f * ysz;
+      rdc.fc.plane[1] = rec_cb + (int64_t)f * csz;
+      rdc.fc.plane[2] = rec_cr + (int64_t)f * csz;
+      rdc.mode_map = mode_map.data() + (size_t)f * n4;
+      rdc.mode_set = mode_set.data() + (size_t)f * n4;
+      RowProgress& mine = progress[(size_t)f * n_rows + r];
+      for (int col = 0; col < n_cols; ++col) {
+        if (r > 0) {
+          RowProgress& above = progress[(size_t)f * n_rows + r - 1];
+          const int need = std::min(col + 2, n_cols);
+          if (above.done.load(std::memory_order_acquire) < need) {
+            const auto t0 = clk::now();
+            wait_row(above, need);
+            wait_s[w] += seconds_between(t0, clk::now());
+          }
+        }
+        const int64_t ctu = ((int64_t)f * n_rows + r) * n_cols + col;
+        t.nodes = nodes + ctu_node_off[ctu];
+        t.pos = 0;
+        t.decisions = decisions_out + ctu_dec_off[ctu];
+        t.dpos = 0;
         rdc.commit_tree(t, col * cs, r * cs, log2_ctu, 0);
+        if (t.pos != ctu_node_off[ctu + 1] - ctu_node_off[ctu] ||
+            t.dpos != ctu_dec_off[ctu + 1] - ctu_dec_off[ctu])
+          bad_walks.fetch_add(1);
+        finish(mine, col + 1);
+      }
+    }
+    busy_s[w] = seconds_between(t_start, clk::now()) - wait_s[w];
   };
-  if (n_threads <= 1 || n_frames <= 1) {
-    for (int f = 0; f < n_frames; ++f) run_frame(f);
-  } else {
+  {
     std::vector<std::thread> ts;
-    std::atomic_int next{0};
-    for (int t = 0; t < std::min(n_threads, n_frames); ++t)
-      ts.emplace_back([&] {
-        int f;
-        while ((f = next.fetch_add(1)) < n_frames) run_frame(f);
-      });
+    for (int w = 1; w < n_workers; ++w) ts.emplace_back(worker, w);
+    worker(0);
     for (auto& th : ts) th.join();
   }
+  double busy = 0.0, waited = 0.0;
+  for (int w = 0; w < n_workers; ++w) {
+    busy += busy_s[w];
+    waited += wait_s[w];
+  }
+  stats_out[0] = n_workers;
+  stats_out[1] = busy;
+  stats_out[2] = waited;
+  stats_out[3] = (double)bad_walks.load();
   if (prof) {
     auto& p = g_commit_prof;
     std::fprintf(stderr,

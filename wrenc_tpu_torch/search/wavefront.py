@@ -512,8 +512,8 @@ class WavefrontSearch:
 
     def _commit_all(self, all_trees, batch, dev_planes=None):
         """Commit every frame's decisions against true reconstruction: in
-        the native C++ engine (coding-order walk, threaded across frames;
-        the RD tree commit, or under rd_commit=False the plain commit of
+        the native C++ engine (coding-order walk, the frames' CTU rows a
+        wavefront across the host's cores; the RD tree commit, or under rd_commit=False the plain commit of
         the decided CUs), under commit_engine='device' in the device rank
         wavefront, and under qp_delta_pattern in the NumPy rank wavefront
         (`_commit`). The port's native loader raises where the JAX search
