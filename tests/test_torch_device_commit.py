@@ -348,8 +348,8 @@ def test_device_engine_commit_groups(monkeypatch):
     search = _device_search(cfg)
     commits = []
     commit_all = search._commit_all
-    monkeypatch.setattr(search, "_commit_all", lambda t, b, d: commits.append(
-        len(b)) or commit_all(t, b, d))
+    monkeypatch.setattr(search, "_commit_all", lambda t, b, d, s: commits.append(
+        len(b)) or commit_all(t, b, d, s))
     got, _ = Encoder(_port_cfg(cfg), search=search).encode(frames)
     assert commits == [2, 1]
     assert got == want

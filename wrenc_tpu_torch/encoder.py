@@ -52,6 +52,7 @@ class Encoder:
                     rbsp = self.encode_slice(trees)
                     nal.write_nal(out, 9, nal.IDR_W_RADL, rbsp)
                     recons.append(tuple(p.astype(np.uint8) for p in recon))
+            # the search's per-call sums (seconds; 'n_' keys are counts)
             self.phase_times = dict(getattr(self.search, 'phase_times', {}))
             self.phase_times['host_entropy'] = sp.seconds
         return bytes(out), recons

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..entropy import native
 from ..kernels import intra_pred, quantize as kq, refs, transforms
 from ..kernels import trellis as ktr
@@ -395,7 +396,7 @@ def _apply_refine_flags(all_trees, use_map):
 
 
 def commit_frames_device_rd(cfg, origs, all_trees, dev_planes=None,
-                            device='cuda'):
+                            device='cuda', sums=None):
     """Re-decision commit of every frame's tree on the device, one scan.
 
     Same decision discipline as the native RdCommitter at the production
@@ -406,19 +407,39 @@ def commit_frames_device_rd(cfg, origs, all_trees, dev_planes=None,
     that runs the scan; None uploads the frames' planes from `origs` to
     `device` (a sharded stage A shares none). Updates
     cu.luma_mode/chroma_mode/coeffs and the tree structure in place;
-    returns per-frame (ry, rcb, rcr)."""
-    if dev_planes is None:
-        dev_planes = tuple(
-            _upload(np.stack([np.asarray(o[c], np.uint8).reshape(-1)
-                              for o in origs]), torch.device(device))
-            for c in range(3))
-    segments, has_ph = _build_schedule(cfg, all_trees)
-    scan = RdScan(cfg, len(origs), segments, has_ph, dev_planes)
-    for si in range(len(segments)):
-        scan.run_segment(si)
-    recons, use_map = scan.finish()
-    if has_ph:
-        _apply_refine_flags(all_trees, use_map)
+    returns per-frame (ry, rcb, rcr).
+
+    Its four phases are spans (trace.span) of the caller's call and
+    chunk: device_commit_schedule (the schedule and the scan's device
+    constants and rows), device_commit_scan (issuing every rank step;
+    nothing in it waits for the device), device_commit_fetch (the one
+    wait: planes and per-step outputs to the host) and
+    device_commit_writeback (modes, coefficients and refine flags into
+    the CUs). sums: a dict that gets each phase's seconds and the scan's
+    counts (RdScan.counts: n_commit_steps, n_dq_trellis_launches,
+    n_dq_trellis_positions) added; the counts are also attributes of the
+    device_commit_scan span."""
+    with trace.span('device_commit_schedule', sums):
+        if dev_planes is None:
+            dev_planes = tuple(
+                _upload(np.stack([np.asarray(o[c], np.uint8).reshape(-1)
+                                  for o in origs]), torch.device(device))
+                for c in range(3))
+        segments, has_ph = _build_schedule(cfg, all_trees)
+        scan = RdScan(cfg, len(origs), segments, has_ph, dev_planes)
+    with trace.span('device_commit_scan', sums):
+        for si in range(len(segments)):
+            scan.run_segment(si)
+        trace.annotate(**scan.counts)
+    with trace.span('device_commit_fetch', sums):
+        host = scan.fetch()
+    with trace.span('device_commit_writeback', sums):
+        recons, use_map = scan.write_back(host)
+        if has_ph:
+            _apply_refine_flags(all_trees, use_map)
+    if sums is not None:
+        for k, v in scan.counts.items():
+            sums[k] = sums.get(k, 0) + v
     return recons
 
 
@@ -426,7 +447,9 @@ class RdScan:
     """One pass of the rank wavefront over a segmented schedule: the
     device constants and carry, then `run_segment` for each segment in
     order (no host-device synchronization inside), then `finish` (one
-    fetch; writes modes and coefficients into the CU objects)."""
+    fetch; writes modes and coefficients into the CU objects). `counts`
+    holds what the scan has issued: rank steps, K1 launches and their
+    positions (the sum of P * B over each launch's jobs)."""
 
     def __init__(self, cfg, F, segments, has_ph, dev_planes):
         W, H = self.W, self.H = cfg.width, cfg.height
@@ -462,6 +485,8 @@ class RdScan:
                       for ck, rows in seg.items()} for seg in segments]
         self.carry = _carry_init(W, H, F, dev)
         self.ys = [None] * len(segments)
+        self.counts = {'n_commit_steps': 0, 'n_dq_trellis_launches': 0,
+                       'n_dq_trellis_positions': 0}
 
     def _consts(self, cfg, dev):
         """QP / rate-model tables and scalars on the device."""
@@ -512,6 +537,7 @@ class RdScan:
                     live[ck] = ({f: t[a:b] for f, t in rows[ck].items()},
                                 sr.n_ph[r])
             if live:
+                self.counts['n_commit_steps'] += 1
                 for ck, o in self._step(live).items():
                     out[ck].append(o)
         if not self.has_ph:
@@ -824,8 +850,12 @@ class RdScan:
             t = transforms.forward_impl((orig - pred).reshape(-1, s, s))
             staged.append((lg, pred, orig, ls_r, bd_r, jobs))
             tr_jobs.append((t, ls_r, bd_r, lg))
-        tr_out = ktr.trellis_rate_batch(tr_jobs, self.lam_dq, self.lv) \
-            if tr_jobs else []
+        tr_out = []
+        if tr_jobs:
+            tr_out = ktr.trellis_rate_batch(tr_jobs, self.lam_dq, self.lv)
+            self.counts['n_dq_trellis_launches'] += 1
+            self.counts['n_dq_trellis_positions'] += sum(
+                t.shape[0] * t.shape[1] * t.shape[2] for t, _, _, _ in tr_jobs)
         res_map = {}
         for (lg, pred, orig, ls_r, bd_r, jobs), (q, level) in zip(staged,
                                                                   tr_out):
@@ -866,13 +896,24 @@ class RdScan:
         """Fetch the small per-step outputs and the planes once; write the
         winner modes, refine flags and coefficients into the CUs. Returns
         ([(ry, rcb, rcr)] int32 planes, {id(alt_cu): leaf won})."""
-        W, H, F = self.W, self.H, self.F
+        return self.write_back(self.fetch())
+
+    def fetch(self):
+        """The final planes and every segment's per-step outputs on the
+        host: the scan's one wait for the device."""
         fin = [t.cpu().numpy() for t in _carry_final(self.carry)]
+        ys = [{ck: {f: t.cpu().numpy() for f, t in o.items()}
+               for ck, o in seg_ys.items()} for seg_ys in self.ys]
+        return fin, ys
+
+    def write_back(self, host):
+        """fetch()'s arrays into the CUs: winner modes, refine flags and
+        coefficients. Returns finish()'s planes and refine map."""
+        W, H, F = self.W, self.H, self.F
+        fin, ys = host
         use_map = {}
-        for seg, ys in zip(self.segments, self.ys):
-            _extract_costs_modes(seg, {
-                ck: {f: t.cpu().numpy() for f, t in o.items()}
-                for ck, o in ys.items()}, use_map)
+        for seg, seg_ys in zip(self.segments, ys):
+            _extract_costs_modes(seg, seg_ys, use_map)
         ry, rcb, rcr, cyp, ccbp, ccrp = fin
         ry = ry.astype(np.int32).reshape(F, H, W)
         rcb = rcb.astype(np.int32).reshape(F, H // 2, W // 2)

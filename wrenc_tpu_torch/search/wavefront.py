@@ -164,7 +164,9 @@ class WavefrontSearch:
         self._refine_margin = self.rm.split_refine_margin
         self._dev_args = {}
         # summed seconds per phase of the last call (encode_frames resets
-        # it); stage A's device marks per chunk while the recorder is on
+        # it), and under keys that start with 'n_' counts (the device
+        # commit engine's); stage A's device marks per chunk while the
+        # recorder is on
         self.phase_times = {}
         self._luma_marks = {}
 
@@ -259,9 +261,11 @@ class WavefrontSearch:
                 pending = nxt
                 if len(chunks) == k + 1 or (k + 1) % group_n == 0:
                     if not overlap:
+                        sums = {}
                         with self._phase('host_commit', k):
                             recons = self._commit_all(gt, gb,
-                                                      _merge_devp(gd))
+                                                      _merge_devp(gd), sums)
+                        self._add_phases(sums)
                         out.extend(zip(gt, recons))
                     else:
                         if prev is not None:
@@ -278,11 +282,12 @@ class WavefrontSearch:
     def _commit_work(self, batch, all_trees, dev_planes, ctx):
         """One commit group in the worker thread, as the span
         host_commit_work of the call and chunk in ctx (trace.context() of
-        the submitting thread, and the group's last chunk): (recons, its
-        own seconds)."""
-        with trace.span('host_commit_work', **ctx) as sp:
-            recons = self._commit_all(all_trees, batch, dev_planes)
-        return recons, sp.seconds
+        the submitting thread, and the group's last chunk): (recons, the
+        commit's own sums: host_commit_work and the device engine's)."""
+        sums = {}
+        with trace.span('host_commit_work', sums, **ctx):
+            recons = self._commit_all(all_trees, batch, dev_planes, sums)
+        return recons, sums
 
     def _join_commit(self, prev):
         fut, trees, chunk = prev
@@ -290,11 +295,15 @@ class WavefrontSearch:
         # overlap with the next chunk's decide is hidden);
         # host_commit_work = the commit's own wall time in the worker
         with self._phase('host_commit', chunk):
-            recons, work_s = fut.result()
+            recons, sums = fut.result()
         # added on this thread: the worker writes into no shared dict
-        self.phase_times['host_commit_work'] = (
-            self.phase_times.get('host_commit_work', 0.0) + work_s)
+        self._add_phases(sums)
         return list(zip(trees, recons))
+
+    def _add_phases(self, sums):
+        """A commit's own sums into phase_times, on the calling thread."""
+        for k, v in sums.items():
+            self.phase_times[k] = self.phase_times.get(k, 0) + v
 
     def _phase(self, name, chunk):
         """The span of phase `name` of chunk `chunk`; its seconds add
@@ -510,7 +519,7 @@ class WavefrontSearch:
                 all_trees.append(trees)
         return self.batch, all_trees, dev_planes
 
-    def _commit_all(self, all_trees, batch, dev_planes=None):
+    def _commit_all(self, all_trees, batch, dev_planes=None, sums=None):
         """Commit every frame's decisions against true reconstruction: in
         the native C++ engine (coding-order walk, the frames' CTU rows a
         wavefront across the host's cores; the RD tree commit, or under rd_commit=False the plain commit of
@@ -520,7 +529,9 @@ class WavefrontSearch:
         would fall back to the NumPy commit. Runs in a worker thread when
         it overlaps the next chunk (see encode_frames): the native and
         device branches touch only `batch`/`all_trees`, never
-        chunk-coupled instance state."""
+        chunk-coupled instance state. sums: a dict of the caller's that
+        the device engine adds its phases' seconds and counts into
+        (commit_frames_device_rd)."""
         cfg = self.cfg
         pat = tuple(getattr(cfg, 'qp_delta_pattern', ()) or ())
         if pat:
@@ -540,7 +551,7 @@ class WavefrontSearch:
             return recons
         if self._device_commit:
             return commit_frames_device_rd(self.cfg, batch, all_trees,
-                                           dev_planes, self.device)
+                                           dev_planes, self.device, sums)
         ls_tab = np.zeros((2, 4), dtype=np.int32)
         bd_tab = np.zeros((2, 4), dtype=np.int32)
         for c in (0, 1):
