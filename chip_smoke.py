@@ -44,8 +44,10 @@ Run from the root of a checkout. Phases, each fatal on failure:
      stage_a_trellis_rd=1 (K1's launches at the chroma shapes, counted
      the same way); then the device engine in its
      default configuration (device chroma), one 4-frame group, one
-     encode, and its chroma stage A alone as above (its scan is not run
-     alone at 1080p: phase 8 does so at CIF);
+     encode that captures its scan's step graphs (captures, steps and
+     padded rows logged) and one that replays them (same bytes), and its
+     chroma stage A alone as above (its scan is not run alone at 1080p:
+     phase 8 does so at CIF);
   7. a 2-frame CIF encode per config (both stage-A configurations and
      chroma_stage_a='device') on the card equals the same encode on the
      CPU byte for byte, and the port's decoder reproduces the card's
@@ -53,21 +55,26 @@ Run from the root of a checkout. Phases, each fatal on failure:
      96x64, with native and with its default device chroma, and for one
      1920x1088 frame on the default path;
   8. the device commit engine (commit_engine='device',
-     chroma_stage_a='native'): 16 CIF frames at QP 32, warm-up then timed
-     with the launch counters reset just before and read just after, K1
-     launched from trellis_rate_batch once per wave with trellis jobs,
-     decode == reconstruction, the native engine's bytes and PSNR beside
-     it, and one more timed encode in the engine's default configuration
+     chroma_stage_a='native'): 16 CIF frames at QP 32, warm-up (which
+     captures the rank steps' graphs) then timed with the launch
+     counters reset just before and read just after: no graph captured,
+     every step a replay (trellis_rate_batch never called), decode ==
+     reconstruction, the native engine's bytes and PSNR beside it, and
+     one more timed encode in the engine's default configuration
      (device chroma) with its chroma stage A alone as in 6; then the scan
      alone on those frames, its first segment under
      torch.cuda.set_sync_debug_mode("error") (no host-device sync inside
      the step loop), its steps and wall time; again under torch.profiler
-     (the kernels' summed device time); again counting the PyTorch
-     operators it dispatches (per step); again with CUDA events around
-     every K1
-     launch (summed device time, shapes); and K1 through
-     trellis_rate_batch against its plain twin at the scan's shapes in
-     one launch, with kernel-alone and plain times beside the bound;
+     (the kernels' summed device time, each K1 launch's device time: as
+     many K1 kernels as the step graphs hold and as the timed encode
+     counted, in as many steps as the schedule has); again counting the
+     PyTorch operators it dispatches (per step); the engine committing
+     in the worker thread (_device_groups: 32 CIF frames in one scan,
+     captured then replayed, equal to two 16-frame calls; 48 frames of
+     64x64 in commit groups of 16, card bytes == CPU bytes); and K1
+     through trellis_rate_batch against its plain twin at the scan's
+     shapes in one launch, with kernel-alone and plain times beside the
+     bound;
   9. the commit paths, on CIF frames at QP 32: qp_delta_pattern=(-3, 0, 4)
      on 2 frames (the three decoders reproduce the reconstruction, card
      bytes == CPU bytes, wall and phase times); rd_commit=False,
@@ -1341,7 +1348,8 @@ def phase_1080p():
     """4 synthetic 1920x1088 frames at QP 32. The default path (native
     engine, device chroma: 1-frame chunks), warm-up then timed; one
     chunk's chroma stage A alone; then the device engine in its default
-    configuration, one 4-frame group, one encode, and its chroma stage A
+    configuration, one 4-frame group: an encode that captures its
+    scan's step graphs, one that replays them, and its chroma stage A
     alone."""
     from wrenc_tpu_torch.core.config import EncoderConfig
     from wrenc_tpu_torch.encoder import Encoder
@@ -1384,18 +1392,31 @@ def phase_1080p():
     if not (dsearch._device_commit and dsearch._chroma_device):
         raise AssertionError("1080p device engine: want device chroma")
     denc = Encoder(cfg, search=dsearch)
-    dstream, drecons, ddt, dl = _timed_encode(
-        denc, frames, ["dq_greedy", "dq_trellis_batch"])
+    dstream, drecons, ddt, dl = _timed_encode(denc, frames, ["dq_greedy"])
+    first = _scan_counts(denc)
     _decodes(dstream, drecons, "1080p device engine")
+    # again: the scan replays the graphs the first call captured
+    again, _, adt, dl = _timed_encode(denc, frames, ["dq_greedy"])
+    counts = _scan_counts(denc)
+    if (again != dstream or counts["n_commit_graph_captures"] != 0
+            or counts["n_commit_graph_replays"] != counts["n_commit_steps"]):
+        raise AssertionError(f"1080p device engine again: {counts}, same "
+                             f"bytes {again == dstream}")
+    dl["dq_trellis_in_scan"] = counts["n_dq_trellis_launches"]
     dphases = {k: round(v, 4) for k, v in denc.phase_times.items()}
     d = out["device_engine"] = {
-        "fps": len(frames) / ddt, "seconds": ddt, "bytes": len(dstream),
+        "fps": len(frames) / adt, "seconds": adt, "bytes": len(dstream),
+        "first_seconds": ddt, "first_counts": first, "counts": counts,
         "psnr_y": _psnr_y(drecons, frames), "launches": dl,
         "phase_times": dphases}
     log(f"1080p device engine (default chroma): {len(frames)} frames in one "
-        f"group, {ddt:.3f} s = {d['fps']:.3f} fps, {len(dstream)} bytes "
-        f"(native engine {len(stream)}), PSNR-Y {d['psnr_y']:.2f} dB, "
-        f"launches {dl}; decode == reconstruction")
+        f"group; first call {ddt:.3f} s ({first['n_commit_graph_captures']} "
+        f"graphs captured, {first['n_commit_steps']} steps, "
+        f"{first['n_commit_rows_padded']} padded rows of "
+        f"{first['n_commit_rows_padded'] + first['n_commit_rows_live']}), "
+        f"again {adt:.3f} s = {d['fps']:.3f} fps (all replays), "
+        f"{len(dstream)} bytes (native engine {len(stream)}), PSNR-Y "
+        f"{d['psnr_y']:.2f} dB, launches {dl}; decode == reconstruction")
     log(f"  phase_times (s): {json.dumps(dphases)}")
     d["chroma_one_chunk"] = _chroma_chunk(dsearch, frames,
                                           "1080p device engine")
@@ -1431,39 +1452,35 @@ class _OpCount:
         return self.mode.__exit__(*exc)
 
 
-def _scan(search, frames, debug_first=False, on_k1=None, profile=False,
+def _scan(search, frames, debug_first=False, profile=False,
           count_ops=False):
     """Stage A and the decide for `frames` (one chunk), then the device
     commit alone: the schedule and the scan's set-up (host clock), and
-    the scan timed from its first step to its fetched result.
+    the scan timed from its first step to its fetched result, with the
+    job shapes [(P, B)] of each K1 launch in launch order (from the
+    step graphs that ran) and the scan's counts.
     debug_first: run the first segment under the CUDA sync debug mode
     "error", so any host-device synchronization in the step loop raises.
-    on_k1: called around each K1 launch inside the scan. profile: trace
-    the scan's kernels with torch.profiler (CUDA activity only) and
-    return their summed device time and each K1 kernel's device time, in
-    launch order. count_ops: count the PyTorch operators the step loop
-    dispatches."""
+    profile: trace the scan's kernels with torch.profiler (CUDA activity
+    only) and return their summed device time and each K1 kernel's
+    device time, in launch order. count_ops: count the PyTorch operators
+    the step loop dispatches."""
     import torch
-    from wrenc_tpu_torch.kernels import trellis
     from wrenc_tpu_torch.search import device_commit as dc
     batch, trees, devp = search._decide_chunk(
         search._dispatch_stage_a(frames))
     t0 = time.perf_counter()
     segs, has_ph = dc._build_schedule(search.cfg, trees)
     t1 = time.perf_counter()
-    scan = dc.RdScan(search.cfg, len(batch), segs, has_ph, devp)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    steps = sum(len({r for rows in seg.values() for r in range(dc.SEG)
-                     if rows.off[r + 1] > rows.off[r]}) for seg in segs)
-    launch = trellis._launch_k1
-    if on_k1 is not None:
-        trellis._launch_k1 = lambda *a: on_k1(launch, *a)
-    ctx = (torch.profiler.profile(
+    ctx = dc._context(search.cfg, len(batch), devp[0].device)
+    rec = (torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]) if profile
         else _OpCount() if count_ops else contextlib.nullcontext())
-    try:
-        with ctx as prof:
+    with ctx.lock:
+        scan = dc.RdScan(search.cfg, len(batch), segs, has_ph, devp, ctx)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with rec as prof:
             t3 = time.perf_counter()
             for si in range(len(segs)):
                 if debug_first and si == 0:
@@ -1475,11 +1492,15 @@ def _scan(search, frames, debug_first=False, on_k1=None, profile=False,
             recons, _ = scan.finish()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t3
-    finally:
-        trellis._launch_k1 = launch
+    steps = sum(len({r for rows in seg.values() for r in range(dc.SEG)
+                     if rows.off[r + 1] > rows.off[r]}) for seg in segs)
+    shapes = [tuple((n * m, B) for B, n, m in jobs)
+              for seg in scan.steps for st in seg
+              for jobs in scan.ctx.graphs[scan.key + (st.sig,)][1]]
     out = {"seconds": dt, "schedule_seconds": t1 - t0,
            "setup_seconds": t2 - t1, "steps": steps, "segments": len(segs),
-           "phantoms": has_ph}
+           "phantoms": has_ph, "k1_shapes": shapes,
+           "counts": dict(scan.counts)}
     if profile:
         out["device_busy_seconds"] = sum(
             getattr(e, "self_device_time_total", 0.0)
@@ -1499,40 +1520,26 @@ def phase_device_commit(native_report):
     from wrenc_tpu_torch.decoder import decode_annexb
     from wrenc_tpu_torch.encoder import Encoder
     from wrenc_tpu_torch.search import WavefrontSearch
-    from wrenc_tpu_torch.search import device_commit as dc
     frames = synth_frames(16, *CIF, seed=1)
     cfg = _cfg(0)
     enc = Encoder(cfg, search=WavefrontSearch(cfg, **DEVICE_ENGINE))
     t0 = time.perf_counter()
     enc.encode(frames)                                     # warm-up
     warm = time.perf_counter() - t0
-    counters = _counters()
-    # the waves that hold trellis jobs: K1 must launch once for each
-    tq_all = dc.RdScan._tq_all
-    waves = [0]
-
-    def counted(self, jobs):
-        waves[0] += bool(jobs)
-        return tq_all(self, jobs)
-    for f in counters.values():
-        f.launches = 0
-    dc.RdScan._tq_all = counted
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stream, recons = enc.encode(frames)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    finally:
-        dc.RdScan._tq_all = tq_all
-    launches = {k: f.launches for k, f in counters.items()}
-    if launches["dq_trellis_batch"] <= 0:
-        raise AssertionError("device engine: K1 never launched from "
-                             "trellis_rate_batch")
-    if launches["dq_trellis_batch"] != waves[0]:
-        raise AssertionError(
-            f"device engine: {launches['dq_trellis_batch']} K1 launches "
-            f"for {waves[0]} waves with trellis jobs")
+    warm_counts = {k: v for k, v in enc.phase_times.items()
+                   if k.startswith("n_")}
+    # the same frames again: every rank step replays the graph its shape
+    # captured in the warm-up, so trellis_rate_batch is never called; the
+    # scan's count of the K1 launches it replayed is held against a
+    # torch.profiler trace of the same scan below
+    stream, recons, dt, launches = _timed_encode(enc, frames, ["dq_greedy"])
+    counts = _scan_counts(enc)
+    if (counts["n_commit_graph_captures"] != 0
+            or counts["n_commit_graph_replays"] != counts["n_commit_steps"]
+            or launches["dq_trellis_batch"] != 0):
+        raise AssertionError(f"device engine, same frames again: {counts}, "
+                             f"launches {launches}")
+    launches["dq_trellis_in_scan"] = counts["n_dq_trellis_launches"]
     dec = decode_annexb(stream)
     if len(dec) != len(frames) or not all(
             (dec[k][c] == recons[k][c]).all()
@@ -1544,10 +1551,11 @@ def phase_device_commit(native_report):
     phases = {k: round(v, 4) for k, v in enc.phase_times.items()}
     STREAMS["commit_engine=device"] = stream
     log(f"device engine: {len(frames)} CIF frames QP 32 in {dt:.3f} s = "
-        f"{len(frames) / dt:.3f} fps (warm-up {warm:.1f} s), {len(stream)} "
-        f"bytes, PSNR-Y {psnr:.2f} dB, launches {launches} (one K1 launch "
-        f"per wave: {waves[0]} waves); native engine "
-        f"(report only): {native_report['bytes']} bytes, PSNR-Y "
+        f"{len(frames) / dt:.3f} fps (warm-up {warm:.1f} s: "
+        f"{warm_counts['n_commit_graph_captures']} step graphs captured), "
+        f"{len(stream)} bytes, PSNR-Y {psnr:.2f} dB, launches {launches} "
+        f"(one K1 launch per wave); native engine (report only): "
+        f"{native_report['bytes']} bytes, PSNR-Y "
         f"{native_report['psnr_y']:.2f} dB")
     log(f"  phase_times (s): {json.dumps(phases)}")
 
@@ -1556,8 +1564,8 @@ def phase_device_commit(native_report):
                                                  commit_engine="device"))
     if not enc_dc.search._chroma_device:
         raise AssertionError("device engine: default chroma is not device")
-    s_dc, r_dc, dt_dc, l_dc = _timed_encode(
-        enc_dc, frames, ["dq_greedy", "dq_trellis_batch"])
+    s_dc, r_dc, dt_dc, l_dc = _timed_encode(enc_dc, frames, ["dq_greedy"])
+    l_dc["dq_trellis_in_scan"] = _scan_counts(enc_dc)["n_dq_trellis_launches"]
     _decodes(s_dc, r_dc, "device engine, default chroma")
     default_chroma = {
         "fps": len(frames) / dt_dc, "seconds": dt_dc, "bytes": len(s_dc),
@@ -1582,17 +1590,18 @@ def phase_device_commit(native_report):
         f"{sc['segments']} segments (phantoms: {sc['phantoms']}) in "
         f"{sc['seconds']:.3f} s = {sc['seconds'] / sc['steps'] * 1e3:.2f} "
         f"ms per step; the first segment ran under the sync debug mode "
-        f"'error'")
-    shapes = []
-
-    def on_shape(launch, jobs, *a):
-        shapes.append(tuple((1 << (2 * j[3]), j[0].shape[0]) for j in jobs))
-        return launch(jobs, *a)
-    prof, _ = _scan(search, frames, profile=True, on_k1=on_shape)
+        f"'error'; counts {json.dumps(sc['counts'])}")
+    prof, _ = _scan(search, frames, profile=True)
     k1_ms = prof["k1_device_ms"]
-    if len(k1_ms) != len(shapes):
-        raise AssertionError(f"torch.profiler traced {len(k1_ms)} K1 "
-                             f"kernels of {len(shapes)} launches")
+    shapes = prof["k1_shapes"]
+    # the same frames make the same schedule: the timed encode's counts
+    # against the schedule's steps and the trace's K1 kernels
+    if not (len(k1_ms) == len(shapes) == counts["n_dq_trellis_launches"]
+            and sc["steps"] == counts["n_commit_steps"]):
+        raise AssertionError(
+            f"torch.profiler traced {len(k1_ms)} K1 kernels in "
+            f"{sc['steps']} steps; the step graphs hold {len(shapes)} "
+            f"launches; the timed encode counted {counts}")
     busy = prof["device_busy_seconds"]
     sc["device_busy_seconds"] = busy
     sc["profiled_seconds"] = prof["seconds"]
@@ -1610,35 +1619,88 @@ def phase_device_commit(native_report):
         f"{n_ops / sc['steps']:.0f} per step; most frequent: "
         f"{json.dumps(sc['top_ops'])} "
         f"({time.perf_counter() - t_ops:.1f} s with the counter)")
-
-    # again, with CUDA events around every K1 launch: the device sits
-    # idle through most of the scan, so each pair also times the host's
-    # side of the launch (output allocation, parameters, the ctypes call)
-    events = []
-
-    def on_k1(launch, jobs, *a):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = launch(jobs, *a)
-        e1.record()
-        events.append((e0, e1))
-        return out
-    _scan(search, frames, on_k1=on_k1)
-    torch.cuda.synchronize()
-    hd_ms = [e0.elapsed_time(e1) for e0, e1 in events]
-    log(f"  K1 inside the scan: {len(k1_ms)} launches, {sum(k1_ms):.3f} ms "
-        f"summed device time (torch.profiler), {sum(hd_ms):.3f} ms summed "
-        f"host+device time (CUDA events around each launch)")
+    log(f"  K1 inside the scan: {len(k1_ms)} launches traced by "
+        f"torch.profiler = the timed encode's count, {sum(k1_ms):.3f} ms "
+        f"summed device time")
+    groups = _device_groups(cfg)
     return {"fps": len(frames) / dt, "seconds": dt, "warmup_seconds": warm,
+            "warmup_counts": warm_counts, "counts": counts,
             "bytes": len(stream), "psnr_y": psnr, "launches": launches,
             "phase_times": phases, "default_chroma": default_chroma,
             "native_engine": {k: native_report[k] for k in ("bytes",
                                                             "psnr_y")},
             "scan": dict(sc, k1_launches=len(k1_ms),
-                         k1_device_ms_sum=sum(k1_ms),
-                         k1_host_device_ms_sum=sum(hd_ms)),
-            "k1_shapes": shapes, "k1_ms": k1_ms, "k1_hd_ms": hd_ms}
+                         k1_device_ms_sum=sum(k1_ms)),
+            "k1_shapes": shapes, "k1_ms": k1_ms, "groups": groups}
+
+
+def _scan_counts(enc):
+    """The device commit's counts (device_commit.COUNTS) of enc's last
+    call, from its phase_times; fails when its scans launched no K1."""
+    from wrenc_tpu_torch.search import device_commit as dc
+    counts = {k: enc.phase_times.get(k, 0) for k in dc.COUNTS}
+    if counts["n_dq_trellis_launches"] <= 0:
+        raise AssertionError(f"device engine: no K1 launch in the scan "
+                             f"({counts})")
+    return counts
+
+
+def _device_groups(cfg):
+    """The device engine committing in the worker thread. 32 CIF frames
+    (two 16-frame chunks, one 32-frame scan in the worker), twice: the
+    first call captures that scan's graphs, the second replays them;
+    reconstructions equal to the two halves encoded apart (each a
+    16-frame scan on the main thread), decode == reconstruction. Then
+    48 frames of 64x64 in commit groups of 16 (WRENC_COMMIT_GROUP): each
+    group's graphs captured in the worker while the main thread runs the
+    next chunk's stage A and decide; card bytes == CPU bytes."""
+    from wrenc_tpu_torch.core.config import EncoderConfig
+    from wrenc_tpu_torch.encoder import Encoder
+    from wrenc_tpu_torch.search import WavefrontSearch
+    out = {}
+    frames = synth_frames(32, *CIF, seed=3)
+    enc = Encoder(cfg, search=WavefrontSearch(cfg, **DEVICE_ENGINE))
+    calls = []
+    for _ in range(2):
+        stream, recons, dt, _ = _timed_encode(enc, frames, ["dq_greedy"])
+        calls.append((stream, dt, _scan_counts(enc)))
+    _decodes(stream, recons, "device engine, 32 CIF frames")
+    halves = [r for part in (frames[:16], frames[16:])
+              for r in enc.encode(part)[1]]
+    _same_planes(halves, recons, "device engine, 32 CIF frames against "
+                 "two 16-frame calls")
+    (s1, dt1, c1), (s2, dt2, c2) = calls
+    if (s1 != s2 or c1["n_commit_graph_captures"] <= 0
+            or c2["n_commit_graph_captures"] != 0
+            or c2["n_commit_graph_replays"] != c2["n_commit_steps"]):
+        raise AssertionError(f"device engine, 32 CIF frames: first call "
+                             f"{c1}, second {c2}, same bytes {s1 == s2}")
+    out["cif_32"] = {"first_seconds": dt1, "second_seconds": dt2,
+                     "first_counts": c1, "second_counts": c2,
+                     "bytes": len(s2)}
+    log(f"device engine, 32 CIF frames (one scan in the worker): first call "
+        f"{dt1:.3f} s ({c1['n_commit_graph_captures']} graphs captured, "
+        f"{c1['n_commit_steps']} steps), second {dt2:.3f} s (all replays); "
+        f"reconstructions == two 16-frame calls'; decode == reconstruction")
+    small = EncoderConfig(width=64, height=64, qp=32)
+    frames = synth_frames(48, 64, 64, seed=5)
+    with _env("WRENC_COMMIT_GROUP", "16"):
+        s_gpu, r_gpu, dt, _ = _timed_encode(Encoder(small, search=(
+            WavefrontSearch(small, **DEVICE_ENGINE))), frames, ["dq_greedy"])
+        t0 = time.perf_counter()
+        s_cpu, _ = Encoder(small, search=WavefrontSearch(
+            small, device="cpu", **DEVICE_ENGINE)).encode(frames)
+        t_cpu = time.perf_counter() - t0
+    if s_gpu != s_cpu:
+        raise AssertionError("device engine, 64x64 groups of 16: card bytes "
+                             "!= CPU bytes")
+    _decodes(s_gpu, r_gpu, "device engine, 64x64 groups of 16")
+    out["64x64_groups"] = {"seconds": dt, "cpu_seconds": t_cpu,
+                           "bytes": len(s_gpu)}
+    log(f"device engine, 48 frames of 64x64 in commit groups of 16 (the "
+        f"worker captures while the main thread runs stage A): {dt:.3f} s, "
+        f"card bytes == CPU bytes ({len(s_gpu)} bytes; CPU {t_cpu:.1f} s)")
+    return out
 
 
 def phase_batch_check(dev):
@@ -1647,7 +1709,8 @@ def phase_batch_check(dev):
     of that size's jobs, with per-row ls / bd_shift as the scan passes
     them, in one launch. Then that wave's and each size's K1 device time
     alone beside the plain time and the bound; and the scan's launches
-    grouped by their wave's largest size."""
+    grouped by their wave's largest size (their device time in the
+    scan's step graphs)."""
     import numpy as np
     import torch
     from wrenc_tpu_torch.kernels import quantize as kq
@@ -1655,10 +1718,10 @@ def phase_batch_check(dev):
     from wrenc_tpu_torch.kernels import trellis as ktr
     jobs_b = {}
     by_top = {}
-    for wave, ms, hd in zip(dev["k1_shapes"], dev["k1_ms"], dev["k1_hd_ms"]):
+    for wave, ms in zip(dev["k1_shapes"], dev["k1_ms"]):
         for P, B in wave:
             jobs_b.setdefault(P, []).append(B)
-        by_top.setdefault(max(P for P, _ in wave), []).append((ms, hd))
+        by_top.setdefault(max(P for P, _ in wave), []).append(ms)
     rng = np.random.default_rng(7)
     _, lam, lv = _qcase(2, 32, True)
     lam_d = kq.table(lam, torch.int32, "cuda")
@@ -1708,13 +1771,10 @@ def phase_batch_check(dev):
     for P, v in sorted(by_top.items()):
         s = 1 << ((P.bit_length() - 1) // 2)
         per_top[s] = {"launches": len(v),
-                      "ms_in_scan_mean": float(np.mean([m for m, _ in v])),
-                      "host_device_ms_in_scan_mean": float(np.mean(
-                          [h for _, h in v]))}
+                      "ms_in_scan_mean": float(np.mean(v))}
         log(f"  waves whose largest size is s={s:2d}: {len(v)} launches, "
-            f"{per_top[s]['ms_in_scan_mean']:.4f} ms device and "
-            f"{per_top[s]['host_device_ms_in_scan_mean']:.4f} ms "
-            f"host+device in the scan (mean)")
+            f"{per_top[s]['ms_in_scan_mean']:.4f} ms device in the scan "
+            f"(mean)")
     b = [bound(w) for w in dev["k1_shapes"]]
     n = len(b)
     return {"err": err, "per_size": per_size, "per_wave_top": per_top,
@@ -1793,8 +1853,10 @@ def phase_mesh():
             t0 = time.perf_counter()
             enc.encode(frames)
             warm = time.perf_counter() - t0
-        need = [kern] + (["dq_trellis_batch"] if kw else [])
-        stream, recons, dt, launches = _timed_encode(enc, frames, need)
+        stream, recons, dt, launches = _timed_encode(enc, frames, [kern])
+        if kw:
+            launches["dq_trellis_in_scan"] = _scan_counts(enc)[
+                "n_dq_trellis_launches"]
         _decodes(stream, recons, f"mesh [{name}]")
         if stream != STREAMS[ref]:
             raise AssertionError(f"mesh [{name}]: card bytes != the "
@@ -2063,11 +2125,15 @@ def phase_tools():
         raise AssertionError("dashboard: want the PSNR and SSIM plots")
     out["dashboard_bytes"] = len(html)
     report, dt, launches = _counted(lambda: engine_ab.run_ab(
-        [("synthetic CIF seed 1", frames[:4])], [32], 4),
-        ["dq_greedy", "dq_trellis_batch"])
+        [("synthetic CIF seed 1", frames[:4])], [32], 4), ["dq_greedy"])
     if not engine_ab.passes_gate(report):
         raise AssertionError(f"engine_ab: outside the gate {report}")
     (row,) = report["points"]
+    launches["dq_trellis_in_scan"] = row["device"]["phases"].get(
+        "n_dq_trellis_launches", 0)
+    if launches["dq_trellis_in_scan"] <= 0:
+        raise AssertionError(f"engine_ab: no K1 launch in the device "
+                             f"engine's scan ({launches})")
     out["engine_ab"] = {"seconds": dt, "launches": launches,
                         "byte_identical": row["byte_identical"],
                         "size_delta_pct": row["size_delta_pct"],
@@ -2348,16 +2414,16 @@ def main():
                     "per_launch"])
     # K1 on the device commit path: per launch (one per wave), the mean
     # over the scan's launches (device time traced by torch.profiler
-    # inside the scan; bound and plain time from each launch's jobs).
-    # host_device_ms: the same launches timed by CUDA events around the
-    # launch helper.
+    # inside the scan's step graphs; bound and plain time from each
+    # launch's jobs).
     scan = dev["scan"]
     kernels.append({
         "name": "dq_trellis", "entry": "trellis_rate_batch", "route": "cuda",
         "source": "wrenc_tpu_torch/kernels/csrc/dq_scan.cu",
         "replaces": "wrenc_tpu/kernels/trellis_pallas.py:296",
-        "launches": dev["launches"]["dq_trellis_batch"],
-        "launches_per_path": {p: v["dq_trellis_batch"]
+        "launches": dev["counts"]["n_dq_trellis_launches"],
+        "launches_per_path": {p: v.get("dq_trellis_in_scan",
+                                       v["dq_trellis_batch"])
                               for p, v in per_path.items()
                               if "dq_trellis_batch" in v},
         "max_abs_err": batch["err"],
@@ -2367,8 +2433,6 @@ def main():
                      else "bytes"),
         "library_ms": None,
         "ms_sum_in_scan": scan["k1_device_ms_sum"],
-        "host_device_ms": scan["k1_host_device_ms_sum"]
-        / scan["k1_launches"],
         "wave_alone_ms": batch["wave_alone_ms"],
         "per_wave_top": batch["per_wave_top"],
         "per_size": batch["per_size"]})

@@ -225,20 +225,81 @@ def test_schedule_matches_jax(margin):
 
 @pytest.mark.parametrize("has_ph", [False, True])
 def test_schedule_refuses_repeated_scatter_targets(has_ph):
-    ck = ('S', 3)
+    """A class's schedule rows (frames below F) name distinct blocks in
+    the whole scan: each step scatters its coefficients and its modes,
+    read back per block, in place. Padded rows (frames F and up) may
+    repeat a block in another step only. has_ph: the class checked is
+    the split-refine class ('S'), whose rows may be phantoms, else a
+    luma class, which has none; one rule holds for both."""
+    ck = ('S', 3) if has_ph else ('L', 2)
+    F = 2
     bf = np.zeros(2, np.int32)
-    tdc._check_targets(ck, np.array([0, 0]), bf, np.array([0, 1]), has_ph)
-    # the same block in two steps: a repeat only for the segment-wide
-    # post-segment scatter, which runs when there are no phantoms
-    again = (ck, np.array([0, 1]), bf, np.array([0, 0]), has_ph)
-    if has_ph:
-        tdc._check_targets(*again)
-    else:
+    tdc._check_targets(ck, np.array([0, 0]), bf, np.array([0, 1]), F)
+    for steps in ([0, 1], [0, 0]):
         with pytest.raises(RuntimeError, match="repeats"):
-            tdc._check_targets(*again)
+            tdc._check_targets(ck, np.array(steps), bf, np.array([0, 0]), F)
+    pad = np.full(2, F, np.int32)
+    tdc._check_targets(ck, np.array([0, 1]), pad, np.array([0, 0]), F)
     with pytest.raises(RuntimeError, match="repeats"):
-        tdc._check_targets(ck, np.array([0, 0]), bf, np.array([0, 0]),
-                           has_ph)
+        tdc._check_targets(ck, np.array([0, 0]), pad, np.array([0, 0]), F)
+
+
+@pytest.mark.parametrize("margin", [0.0, 10.0])
+def test_padded_steps_name_pad_frames(margin, monkeypatch):
+    """Each rank step packs, per class with rows in it (in sorted order),
+    the schedule's rows of that step, then padded rows up to the
+    power-of-two cap _row_cap gives (at least ROW_CAP_MIN, also forced
+    larger): the padded rows are not valid, no phantom, hold no
+    candidate, and each names its own block of a pad frame (F up to
+    F + _pad_frames), distinct from each other and from every schedule
+    row of the step (_check_targets)."""
+    cfg, all_trees = _port_trees(96, 64, 35, margin, (5, 6))
+    F = len(all_trees)
+    segs, has_ph = tdc._build_schedule(cfg, all_trees)
+    n_cand = next(r.fields['cands'].shape[1] for seg in segs
+                  for ck, r in seg.items() if ck[0] != 'C')
+    for cap_min in (16, 64):
+        monkeypatch.setattr(tdc, "ROW_CAP_MIN", cap_min)
+        P = tdc._pad_frames(96, 64, F, 5)
+        pads = 0
+        for seg in segs:
+            ranks = [r for r in range(tdc.SEG)
+                     if any(sr.off[r + 1] > sr.off[r] for sr in seg.values())]
+            steps = tdc._pack_steps(cfg, seg, has_ph, F, n_cand)
+            assert len(steps) == len(ranks)
+            for r, st in zip(ranks, steps):
+                assert [ck for ck, _, _ in st.sig] == sorted(
+                    ck for ck, sr in seg.items() if sr.off[r + 1] > sr.off[r])
+                o = live = pad = 0
+                for ck, cap, ph in st.sig:
+                    sr = seg[ck]
+                    a, b = sr.off[r], sr.off[r + 1]
+                    n = b - a
+                    assert cap == tdc._row_cap(n) >= max(n, cap_min)
+                    assert cap & (cap - 1) == 0 and cap < 2 * max(n, cap_min)
+                    assert ph == (sr.n_ph[r] > 0)
+                    lay, length = tdc._layout(ck, cap, n_cand, has_ph)
+                    x = {f: st.rows[o + i:o + i + int(np.prod(shp))]
+                         .reshape(shp) for f, i, shp in lay}
+                    assert sorted(x) == sorted(sr.fields)
+                    for f, v in sr.fields.items():
+                        assert (x[f][:n] == v[a:b]).all(), (ck, f)
+                    assert not x['valid'][n:].any()
+                    if 'ph' in x:
+                        assert not x['ph'][n:].any()
+                    if 'cands' in x:
+                        assert (x['cands'][n:] == -1).all()
+                    assert (x['bf'][:n] < F).all()
+                    assert ((x['bf'][n:] >= F) & (x['bf'][n:] < F + P)).all()
+                    nb = (96 // tdc._grid(ck)) * (64 // tdc._grid(ck))
+                    assert ((x['bi'] >= 0) & (x['bi'] < nb)).all()
+                    tdc._check_targets(ck, np.zeros(cap, np.int64), x['bf'],
+                                       x['bi'], F)
+                    o, live, pad = o + length, live + n, pad + cap - n
+                assert o == len(st.rows)
+                assert (st.live, st.pad) == (live, pad)
+                pads += pad
+        assert pads > 0
 
 
 def test_cost16384_matches_jax():
@@ -305,6 +366,80 @@ def test_device_engine_bytes_match_jax(w, h, qp, margin, n, monkeypatch):
         # no single-tree leaf: each one is a merged leaf that won
         assert any(cu.tree == 'S' for trees, _ in runs[0]
                    for cu in _leaf_cus(trees))
+
+
+def _k1_positions_per_row(ck, n_cand, cclm):
+    """K1 positions one row of class ck adds to a rank step: its luma
+    candidates, its chroma candidates ('S') or derived chroma ('C'), and
+    its CCLM pick (but for 'L')."""
+    tree, log2 = ck
+    s = 1 << log2
+    cs = s >> 1 if tree == 'S' else 4
+    p = 0 if tree == 'C' else n_cand * s * s
+    p += 2 * cs * cs * (n_cand if tree == 'S' else 1 if tree == 'C' else 0)
+    return p + (2 * cs * cs if cclm and tree != 'L' else 0)
+
+
+@pytest.mark.parametrize("w,h,qp,margin,n", [
+    (64, 64, 32, None, 1), (96, 64, 35, 10.0, 1)])
+def test_device_engine_bytes_match_jax_at_larger_caps(w, h, qp, margin, n,
+                                                      monkeypatch):
+    """test_device_engine_bytes_match_jax's cases with the row caps
+    forced up (ROW_CAP_MIN 32 for 16): the bytes and reconstruction stay
+    the JAX engine's, phantoms included. The scan's counts stay but for
+    K1's positions, which are the schedule rows' positions plus the
+    padded rows'; n_commit_rows_live is the schedule's row count; off
+    CUDA nothing is captured or replayed."""
+    cfg = EncoderConfig(width=w, height=h, qp=qp)
+    if margin is not None:
+        cfg.rate_model.split_refine_margin = margin
+    frames = [synth_frame(w, h, seed=qp + k) for k in range(n)]
+    want, want_rec = JaxEncoder(cfg, search=JaxSearch(
+        cfg, commit_engine='device', chroma_stage_a='native')).encode(frames)
+    seen = {}
+    build, pack = tdc._build_schedule, tdc._pack_steps
+
+    def built(*a):
+        segs, has_ph = build(*a)
+        seen['rows'] = sum(len(r.cus) for seg in segs for r in seg.values())
+        return segs, has_ph
+
+    def packed(cfg_, seg, has_ph, F, n_cand):
+        steps = pack(cfg_, seg, has_ph, F, n_cand)
+        for st in steps:
+            for ck, cap, _ in st.sig:
+                seen['pos'] = seen.get('pos', 0) + cap * \
+                    _k1_positions_per_row(ck, n_cand, cfg_.cclm_enabled)
+        for ck, sr in seg.items():
+            seen['live_pos'] = seen.get('live_pos', 0) + len(sr.cus) * \
+                _k1_positions_per_row(ck, n_cand, cfg_.cclm_enabled)
+        return steps
+    monkeypatch.setattr(tdc, "_build_schedule", built)
+    monkeypatch.setattr(tdc, "_pack_steps", packed)
+    runs = {}
+    for cap_min in (16, 32):
+        monkeypatch.setattr(tdc, "ROW_CAP_MIN", cap_min)
+        seen.clear()
+        enc = Encoder(_port_cfg(cfg), search=_device_search(cfg))
+        got, rec = enc.encode(frames)
+        assert got == want
+        for k in range(n):
+            for c in range(3):
+                assert (rec[k][c] == want_rec[k][c]).all()
+        ph = enc.phase_times
+        assert ph['n_commit_rows_live'] == seen['rows']
+        assert ph['n_dq_trellis_positions'] == seen['pos']
+        assert ph['n_commit_graph_captures'] == 0
+        assert ph['n_commit_graph_replays'] == 0
+        runs[cap_min] = (dict(ph), seen['live_pos'])
+    (small, live_s), (large, live_l) = runs[16], runs[32]
+    assert live_s == live_l
+    for k in ('n_commit_steps', 'n_dq_trellis_launches',
+              'n_commit_rows_live'):
+        assert small[k] == large[k] > 0
+    assert large['n_commit_rows_padded'] > small['n_commit_rows_padded'] > 0
+    assert large['n_dq_trellis_positions'] > small['n_dq_trellis_positions'] \
+        > live_s
 
 
 def test_device_engine_matches_native_engine():

@@ -109,3 +109,26 @@ def test_the_counts_without_the_recorder(monkeypatch):
     assert all(isinstance(ph[k], float) for k in SPANS)
     assert trace.drain()["spans"] == []
     assert np.isfinite(sum(ph[k] for k in SPANS))
+
+
+def test_the_graph_and_row_counts():
+    """Every count of the scan (dc.COUNTS: the three above, the graphs
+    captured and replayed, the schedule's and the padded rows) is an
+    integer of phase_times and an attribute of the scan span, equal.
+    Off CUDA the steps run eagerly: nothing captured or replayed."""
+    cfg = EncoderConfig(width=64, height=64, qp=32)
+    enc = Encoder(cfg, search=WavefrontSearch(cfg, commit_engine="device",
+                                              device="cpu"))
+    try:
+        trace.enable()
+        enc.encode([synth_frame(64, 64, seed=71)])
+        d = trace.drain()
+    finally:
+        trace.disable()
+    ph = enc.phase_times
+    (scan,) = [s for s in d["spans"] if s["name"] == "device_commit_scan"]
+    assert {k: scan["attrs"][k] for k in dc.COUNTS} == \
+        {k: ph[k] for k in dc.COUNTS}
+    assert all(isinstance(ph[k], int) for k in dc.COUNTS)
+    assert ph["n_commit_graph_captures"] == ph["n_commit_graph_replays"] == 0
+    assert ph["n_commit_rows_live"] > 0 and ph["n_commit_rows_padded"] > 0

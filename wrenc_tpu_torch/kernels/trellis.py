@@ -68,7 +68,10 @@ def trellis_rate_batch(jobs, lam_dq, lv_table):
     are slow on a TPU); K1 needs no counterpart of it, since its lanes
     compute the candidates on the chip from the 1024-entry tables. CPU
     tensors take trellis_rate_batch_plain. Each call counts one launch
-    of its jobs' shapes (trace.count)."""
+    of its jobs' shapes (trace.count) and one in `launches`: a call
+    captured into a CUDA graph counts once, at its capture, and the
+    graph's replays do not call it (the device commit's RdScan.counts
+    counts those)."""
     trace.count('dq_trellis', jobs[0][0].device.type, [j[0] for j in jobs])
     if all(j[0].device.type == 'cpu' for j in jobs):
         return trellis_rate_batch_plain(jobs, lam_dq, lv_table)

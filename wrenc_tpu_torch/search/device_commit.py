@@ -14,20 +14,34 @@ plane, and at the phantom's step the device compares the region's
 accumulated split cost with the merged leaf's and, when the leaf wins,
 overwrites the region (block_splitter.rs:1079-1152).
 
-The JAX `lax.scan` becomes an eager Python loop over rank steps. The host
-knows every step's live rows from the schedule, so each class is trimmed
-to them: no padded rows, no pad slot in the planes, and no two rows of
-one scatter share a target. A row that must not write (a phantom, or a
-phantom that lost) rewrites the values it reads back, so every scatter is
-a deterministic index_put_. Nothing in the step loop waits for the
-device; the small per-step outputs and the planes are fetched once after
-the loop.
+The JAX `lax.scan` becomes a Python loop over rank steps. The host knows
+every step's live rows from the schedule, and pads each class's rows in a
+step to a cap from a power-of-two ladder (`ROW_CAP_MIN` and up), so that
+few distinct step shapes exist. A padded row is never valid and never a
+phantom; it names its own block of one of the pad frames that follow the
+scan's frames in every plane, so no two rows of one scatter share a
+target. A row that must not write (a padded row, a phantom, or a phantom
+that lost) rewrites the values it reads back, so every scatter is a
+deterministic index_put_. Each step scatters its outputs in place: the
+winners' coefficients into the carry's coefficient planes, the modes
+and refine flags into per-class planes indexed like the blocks.
+
+The scan's state outlives a call (`_ScanContext`, one per device, QP,
+geometry, frame count and rate model): constants, carry, the frames'
+planes, per-shape row buffers and, on CUDA, one CUDA graph per step
+shape, captured at its first step and replayed for every later one, so
+a step costs the host one staging copy and one replay. Off CUDA the
+same steps run eagerly on the same buffers. Nothing in the step loop
+waits for the device; the planes are fetched once after the loop.
 
 The module also holds the JAX module's apply-decisions prototype,
 `commit_frame_device` (rd_commit=False semantics, the greedy quantizer:
 kernel K2 once per rank group and component), at the end.
 """
+import collections
+import contextlib
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -142,11 +156,41 @@ def _mpm_bits16384(key_consts):
 
 
 SEG = 64          # ranks per scan segment
+# the least row cap: a class's n rows in a rank step are padded to the
+# least power of two that holds them and is at least this
+ROW_CAP_MIN = 16
+
+
+def _row_cap(n):
+    """The cap a class's n rows of one rank step are padded to."""
+    return max(ROW_CAP_MIN, _buckets(n))
+
+
+def _grid(ck):
+    """The block grid a class's `bi` counts on: 8 for SCIPU chroma, else
+    the block size."""
+    return 8 if ck[0] == 'C' else 1 << ck[1]
+
+
+def _pad_frames(W, H, F, log2_ctu):
+    """The pad frames a scan of F frames needs: the most padded rows any
+    class can have in one step (at most F * blocks rows, no two on one
+    block of one frame), the k-th naming block k % blocks of frame
+    F + k // blocks."""
+    P = 0
+    for gs in {8} | {1 << lg for lg in range(2, log2_ctu + 1)}:
+        nb = (W // gs) * (H // gs)
+        most, c = ROW_CAP_MIN - 1, ROW_CAP_MIN
+        while c < F * nb:           # n = c + 1 rows pad to 2c: c - 1 pads
+            most, c = c - 1, c << 1
+        P = max(P, -(-most // nb))
+    return P
 
 
 def _carry_init(W, H, F, device):
     """Reconstruction planes (int32), mode map, cost plane and coefficient
-    planes (int16), flat per frame. No pad slot: no row writes one."""
+    planes (int16), flat per frame (the scan's frames, then its pad
+    frames)."""
     HW, hw = H * W, (H // 2) * (W // 2)
     n4 = (W >> 2) * (H >> 2)
 
@@ -157,9 +201,10 @@ def _carry_init(W, H, F, device):
             z(HW, torch.int16), z(hw, torch.int16), z(hw, torch.int16)]
 
 
-def _carry_final(carry):
-    """Fetch-side dtypes: recon uint8, coefficients int16."""
-    ry, rcb, rcr, mm, cp, cy, ccb, ccr = carry
+def _carry_final(carry, F):
+    """The first F frames in fetch-side dtypes: recon uint8, coefficients
+    int16."""
+    ry, rcb, rcr, mm, cp, cy, ccb, ccr = (t[:F] for t in carry)
     return (ry.to(torch.uint8), rcb.to(torch.uint8), rcr.to(torch.uint8),
             cy, ccb, ccr)
 
@@ -326,7 +371,7 @@ def _build_schedule(cfg, all_trees):
         n = len(lst)
         r_a = np.fromiter((e[0] for e in lst), np.int64, n)
         ph_a = np.fromiter((e[3] for e in lst), bool, n)
-        gs = 8 if tree == 'C' else 1 << log2
+        gs = _grid(ck)
         fields = {
             'valid': ~ph_a,
             'bf': np.fromiter((e[1] for e in lst), np.int32, n),
@@ -338,33 +383,97 @@ def _build_schedule(cfg, all_trees):
             fields['cands'][:, :cl.shape[1]] = cl
         if has_ph and tree == 'S':
             fields['ph'] = ph_a
+        _check_targets(ck, r_a, fields['bf'], fields['bi'], len(all_trees))
         bounds = np.searchsorted(r_a, np.arange(len(segments) + 1) * SEG)
         for si, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
             if a == b:
                 continue
             rl = r_a[a:b] - si * SEG
-            seg_fields = {f: v[a:b] for f, v in fields.items()}
-            _check_targets(ck, rl, seg_fields['bf'], seg_fields['bi'],
-                           has_ph)
             off = np.zeros(SEG + 1, np.int64)
             off[1:] = np.cumsum(np.bincount(rl, minlength=SEG))
             n_ph = np.bincount(rl, weights=ph_a[a:b], minlength=SEG)
             segments[si][ck] = Rows(
-                seg_fields, off.tolist(), n_ph.astype(np.int64).tolist(),
+                {f: v[a:b] for f, v in fields.items()}, off.tolist(),
+                n_ph.astype(np.int64).tolist(),
                 [(e[2], e[3]) for e in lst[a:b]])
     return segments, has_ph
 
 
-def _check_targets(ck, steps, bf, bi, has_ph):
-    """A class's rows scatter to their own block: no two rows of one
-    index_put_ (a step's with phantoms; else the whole segment's, for the
-    post-segment coefficient scatter) may name the same block of the same
-    frame."""
-    key = np.stack([steps if has_ph else np.zeros_like(steps), bf, bi],
-                   axis=1)
+def _check_targets(ck, steps, bf, bi, F):
+    """A class's rows scatter to their own block. Its schedule rows name
+    frames below F, and no two of them the same block of the same frame,
+    in the whole scan (the modes are read back per block); its padded
+    rows (bf >= F) name pad frames, and no two rows of one step the same
+    block there."""
+    pad = bf >= F
+    key = np.stack([np.where(pad, steps, -1), bf, bi], axis=1)
     if len(np.unique(key, axis=0)) != len(key):
         raise RuntimeError(f"commit schedule: class {ck} repeats a scatter "
                            "target")
+
+
+class ScanStep(NamedTuple):
+    """One rank step of a scan: sig, the (class, row cap, has a phantom)
+    of each class with rows in it, sorted; rows, every such class's
+    padded rows packed in sig order (_layout, int64); live and pad, its
+    schedule rows and padded rows."""
+    sig: tuple
+    rows: np.ndarray
+    live: int
+    pad: int
+
+
+def _layout(ck, cap, n_cand, has_ph):
+    """The fields of a class's block of cap rows, each a run of the block:
+    [(field, start, shape)], and the block's length. 'valid', 'bf', 'bi'
+    and, for 'S' in a scan with phantoms, 'ph' (cap each), then but for
+    'C' the candidates (cap, n_cand)."""
+    names = ['valid', 'bf', 'bi'] + (['ph'] if has_ph and ck[0] == 'S'
+                                      else [])
+    lay = [(f, i * cap, (cap,)) for i, f in enumerate(names)]
+    o = len(names) * cap
+    if ck[0] != 'C':
+        lay.append(('cands', o, (cap, n_cand)))
+        o += cap * n_cand
+    return lay, o
+
+
+def _pack_steps(cfg, segment, has_ph, F, n_cand):
+    """Segment's rank steps as ScanSteps: each class's rows in a step padded
+    to _row_cap(n) rows. The k-th padded row of a class names block
+    k % blocks of pad frame F + k // blocks (_pad_frames), is not valid
+    and no phantom, and has no candidate."""
+    W, H = cfg.width, cfg.height
+    steps = []
+    for r in range(SEG):
+        sig, blocks, live, pad = [], [], 0, 0
+        for ck in sorted(segment):
+            sr = segment[ck]
+            a, b = sr.off[r], sr.off[r + 1]
+            if a == b:
+                continue
+            n = b - a
+            cap = _row_cap(n)
+            nb = (W // _grid(ck)) * (H // _grid(ck))
+            k = np.arange(cap - n)
+            lay, length = _layout(ck, cap, n_cand, has_ph)
+            blk = np.zeros(length, np.int64)
+            for f, o, shp in lay:
+                col = blk[o:o + int(np.prod(shp))].reshape(shp)
+                col[:n] = sr.fields[f][a:b]
+                if f == 'bf':
+                    col[n:] = F + k // nb
+                elif f == 'bi':
+                    col[n:] = k % nb
+                elif f == 'cands':
+                    col[n:] = -1
+            sig.append((ck, cap, sr.n_ph[r] > 0))
+            blocks.append(blk)
+            live, pad = live + n, pad + cap - n
+        if sig:
+            steps.append(ScanStep(tuple(sig), np.concatenate(blocks), live,
+                                  pad))
+    return steps
 
 
 def _apply_refine_flags(all_trees, use_map):
@@ -410,29 +519,32 @@ def commit_frames_device_rd(cfg, origs, all_trees, dev_planes=None,
     returns per-frame (ry, rcb, rcr).
 
     Its four phases are spans (trace.span) of the caller's call and
-    chunk: device_commit_schedule (the schedule and the scan's device
-    constants and rows), device_commit_scan (issuing every rank step;
-    nothing in it waits for the device), device_commit_fetch (the one
-    wait: planes and per-step outputs to the host) and
-    device_commit_writeback (modes, coefficients and refine flags into
-    the CUs). sums: a dict that gets each phase's seconds and the scan's
-    counts (RdScan.counts: n_commit_steps, n_dq_trellis_launches,
-    n_dq_trellis_positions) added; the counts are also attributes of the
-    device_commit_scan span."""
-    with trace.span('device_commit_schedule', sums):
-        if dev_planes is None:
-            dev_planes = tuple(
-                _upload(np.stack([np.asarray(o[c], np.uint8).reshape(-1)
-                                  for o in origs]), torch.device(device))
-                for c in range(3))
-        segments, has_ph = _build_schedule(cfg, all_trees)
-        scan = RdScan(cfg, len(origs), segments, has_ph, dev_planes)
-    with trace.span('device_commit_scan', sums):
-        for si in range(len(segments)):
-            scan.run_segment(si)
-        trace.annotate(**scan.counts)
-    with trace.span('device_commit_fetch', sums):
-        host = scan.fetch()
+    chunk: device_commit_schedule (the schedule, its padded steps and
+    their upload, the scan context's reset), device_commit_scan (issuing
+    every rank step; nothing in it waits for the device),
+    device_commit_fetch (the one wait: planes and outputs to the host)
+    and device_commit_writeback (modes, coefficients and refine flags
+    into the CUs). The scan holds its context's lock from the reset to
+    the fetch. sums: a dict that gets each phase's seconds and the scan's
+    counts (RdScan.counts, COUNTS) added; the counts are also attributes
+    of the device_commit_scan span."""
+    with contextlib.ExitStack() as held:
+        with trace.span('device_commit_schedule', sums):
+            if dev_planes is None:
+                dev_planes = tuple(
+                    _upload(np.stack([np.asarray(o[c], np.uint8).reshape(-1)
+                                      for o in origs]), torch.device(device))
+                    for c in range(3))
+            segments, has_ph = _build_schedule(cfg, all_trees)
+            ctx = _context(cfg, len(origs), dev_planes[0].device)
+            held.enter_context(ctx.lock)
+            scan = RdScan(cfg, len(origs), segments, has_ph, dev_planes, ctx)
+        with trace.span('device_commit_scan', sums):
+            for si in range(len(segments)):
+                scan.run_segment(si)
+            trace.annotate(**scan.counts)
+        with trace.span('device_commit_fetch', sums):
+            host = scan.fetch()
     with trace.span('device_commit_writeback', sums):
         recons, use_map = scan.write_back(host)
         if has_ph:
@@ -443,50 +555,71 @@ def commit_frames_device_rd(cfg, origs, all_trees, dev_planes=None,
     return recons
 
 
-class RdScan:
-    """One pass of the rank wavefront over a segmented schedule: the
-    device constants and carry, then `run_segment` for each segment in
-    order (no host-device synchronization inside), then `finish` (one
-    fetch; writes modes and coefficients into the CU objects). `counts`
-    holds what the scan has issued: rank steps, K1 launches and their
-    positions (the sum of P * B over each launch's jobs)."""
+# what RdScan.counts holds: rank steps run; K1 launches and their
+# positions (the sum of P * B over each launch's jobs, padded rows
+# included); graphs captured and replayed (0 off CUDA); schedule rows and
+# padded rows over the steps run
+COUNTS = ('n_commit_steps', 'n_dq_trellis_launches', 'n_dq_trellis_positions',
+          'n_commit_graph_captures', 'n_commit_graph_replays',
+          'n_commit_rows_live', 'n_commit_rows_padded')
+# scan contexts kept, the most recently used
+MAX_CONTEXTS = 4
+_contexts = collections.OrderedDict()
+_contexts_lock = threading.Lock()
 
-    def __init__(self, cfg, F, segments, has_ph, dev_planes):
-        W, H = self.W, self.H = cfg.width, cfg.height
-        self.cfg = cfg
-        self.segments = segments
-        self.has_ph = has_ph
-        self.cclm = bool(cfg.cclm_enabled)
+
+def _context(cfg, F, dev):
+    """The scan context of a scan of F frames on `dev` under cfg's
+    geometry, QP and rate model: made at its first scan, kept among the
+    MAX_CONTEXTS most recently used."""
+    P = _pad_frames(cfg.width, cfg.height, F, cfg.log2_ctu_size)
+    key = (str(dev), cfg.width, cfg.height, cfg.log2_ctu_size, F, P, cfg.qp,
+           bool(cfg.dep_quant_enabled), bool(cfg.cclm_enabled),
+           repr(cfg.rate_model))
+    with _contexts_lock:
+        ctx = _contexts.pop(key, None) or _ScanContext(cfg, F, P, dev)
+        _contexts[key] = ctx
+        while len(_contexts) > MAX_CONTEXTS:
+            _contexts.popitem(last=False)
+    return ctx
+
+
+class _ScanContext:
+    """What a scan reads and writes that outlives it, for one device,
+    geometry, frame count (F frames, then P pad frames in every plane),
+    QP and rate model: the constants and tables, the carry, the frames'
+    planes, each class's tables and output planes (`prepare`), a rows
+    buffer per step shape (`bufs`) and, on CUDA, per step shape a graph
+    and the job shapes of its K1 launches (`graphs`). A captured graph
+    reads these tensors by address, so the context holds every one of
+    them as long as its graphs; the graphs share one memory pool, and no
+    tensor allocated in a capture outlives it. `lock` keeps one scan at
+    a time on the context."""
+
+    def __init__(self, cfg, F, P, dev):
+        W, H = cfg.width, cfg.height
+        self.W, self.H, self.F, self.P, self.dev = W, H, F, P, dev
         self.log2_ctu = cfg.log2_ctu_size
-        self.F = F
-        dev = dev_planes[0].device
-        self.oy, self.ocb, self.ocr = (p[:F].to(torch.int32)
-                                       for p in dev_planes)
+        self.lock = threading.Lock()
         self._consts(cfg, dev)
-        self.geo = {}
-        self.mats = {}
-        for seg in segments:
-            for tree, log2 in seg:
-                s = 1 << log2
-                if tree != 'C':
-                    self.geo[(tree, log2, 0)] = _geo_dev(
-                        W, H, s, 0, self.log2_ctu, dev)
-                    self.mats[('y', s)] = intra_pred.mats_device_f32(s, 0,
-                                                                     dev)
-                if tree != 'L':
-                    cs = s >> 1 if tree == 'S' else 4
-                    self.geo[(tree, log2, 1)] = _geo_dev(
-                        W, H, cs, 1, self.log2_ctu, dev)
-                    self.mats[('c', cs)] = intra_pred.mats_device_f32(cs, 1,
-                                                                      dev)
-        self.rows = [{ck: {f: _upload(a, dev).to(
-                          torch.bool if a.dtype == bool else torch.int64)
-                           for f, a in rows.fields.items()}
-                      for ck, rows in seg.items()} for seg in segments]
-        self.carry = _carry_init(W, H, F, dev)
-        self.ys = [None] * len(segments)
-        self.counts = {'n_commit_steps': 0, 'n_dq_trellis_launches': 0,
-                       'n_dq_trellis_positions': 0}
+        # the tables the step reads that their modules make on first use:
+        # made here, before any capture
+        self.tables = [transforms._dct2(n, dev) for n in (4, 8, 16, 32)] + [
+            intra_pred._div_sig(dev), ktr.order_table(dev)]
+        self.carry = _carry_init(W, H, F + P, dev)
+        self.oy, self.ocb, self.ocr = (
+            torch.zeros((F + P, n), dtype=torch.int32, device=dev)
+            for n in (H * W, (H // 2) * (W // 2), (H // 2) * (W // 2)))
+        self.geo, self.mats, self.out = {}, {}, {}
+        self.bufs, self.graphs = {}, {}
+        if dev.type == 'cuda':
+            self.stream = torch.cuda.Stream(dev)
+            self.pool = torch.cuda.graph_pool_handle()
+            # cuBLAS's workspace on the capture stream, before any capture
+            with torch.cuda.device(dev), torch.cuda.stream(self.stream):
+                a = torch.ones((1, 1, 1), device=dev)
+                torch.matmul(a, a)
+                torch.matmul(a[0], a[0])
 
     def _consts(self, cfg, dev):
         """QP / rate-model tables and scalars on the device."""
@@ -522,41 +655,164 @@ class RdScan:
         self.cclm_mb = _upload(cclm_mb, dev)
         self.lam_dq = _upload(kq.lam_dq_table(rm, qp, trellis=True), dev)
         self.lv = _upload(kq.lv_table_device(rm, dep, True), dev)
-        ktr.order_table(dev)           # K1's coding orders, uploaded once
+
+    def prepare(self, ck):
+        """Class ck's tables and output planes, made at its first scan:
+        its geometry (`geo`, _geo_dev's), mode matrices (`mats`), and
+        output planes (`out`), (F + P, blocks) each, indexed like its
+        rows' (bf, bi): 'mode' (int8) but for 'C', 'cmode' (int8) but for
+        'L', 'use' (bool, refine phantom won) for 'S'."""
+        if ck in self.out:
+            return
+        W, H, dev = self.W, self.H, self.dev
+        tree, log2 = ck
+        s = 1 << log2
+        if tree != 'C':
+            self.geo[(tree, log2, 0)] = _geo_dev(W, H, s, 0, self.log2_ctu,
+                                                 dev)
+            self.mats[('y', s)] = intra_pred.mats_device_f32(s, 0, dev)
+        if tree != 'L':
+            cs = s >> 1 if tree == 'S' else 4
+            self.geo[(tree, log2, 1)] = _geo_dev(W, H, cs, 1, self.log2_ctu,
+                                                 dev)
+            self.mats[('c', cs)] = intra_pred.mats_device_f32(cs, 1, dev)
+        nb = (W // _grid(ck)) * (H // _grid(ck))
+        names = ([] if tree == 'C' else ['mode']) + \
+            ([] if tree == 'L' else ['cmode']) + \
+            (['use'] if tree == 'S' else [])
+        self.out[ck] = {
+            f: torch.zeros((self.F + self.P, nb), device=dev,
+                           dtype=torch.bool if f == 'use' else torch.int8)
+            for f in names}
+
+    def reset(self, dev_planes):
+        """A new scan: the carry zeroed, the frames' planes copied in."""
+        for t in self.carry:
+            t.zero_()
+        for dst, src in zip((self.oy, self.ocb, self.ocr), dev_planes):
+            dst[:self.F].copy_(src[:self.F])
+
+    def rows_buffer(self, key, n):
+        """The (n,) int64 rows buffer of step shape `key`."""
+        if key not in self.bufs:
+            self.bufs[key] = torch.empty(n, dtype=torch.int64,
+                                         device=self.dev)
+        return self.bufs[key]
+
+    def capture(self, key, step):
+        """step() captured as the graph of step shape `key` (it returns
+        the job shapes of its K1 launches): (graph, those shapes). The
+        capture runs nothing."""
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.dev), torch.cuda.stream(self.stream):
+            g.capture_begin(pool=self.pool, capture_error_mode='thread_local')
+            try:
+                k1 = step()
+            finally:
+                g.capture_end()
+        self.graphs[key] = (g, k1)
+        return self.graphs[key]
+
+
+class RdScan:
+    """One pass of the rank wavefront over a segmented schedule on a scan
+    context (_context), which the caller holds by its lock from before
+    `__init__` to after the fetch: `__init__` pads and packs the steps
+    (_pack_steps), uploads them and resets the context; then
+    `run_segment` for each segment in order (no host-device
+    synchronization inside), then `finish` (one fetch; writes modes and
+    coefficients into the CU objects). `counts` holds what the scan has
+    run (COUNTS); it alone counts the K1 launches of replayed graphs."""
+
+    def __init__(self, cfg, F, segments, has_ph, dev_planes, ctx):
+        self.W, self.H = cfg.width, cfg.height
+        self.cfg = cfg
+        self.segments = segments
+        self.has_ph = has_ph
+        self.cclm = bool(cfg.cclm_enabled)
+        self.log2_ctu = cfg.log2_ctu_size
+        self.F = F
+        dev = dev_planes[0].device
+        self.ctx = ctx
+        for seg in segments:
+            for ck in seg:
+                ctx.prepare(ck)
+        self.geo, self.mats = ctx.geo, ctx.mats
+        n_cand = next((r.fields['cands'].shape[1] for seg in segments
+                       for ck, r in seg.items() if ck[0] != 'C'), 1)
+        self.key = (has_ph, n_cand)
+        self.steps = [_pack_steps(cfg, seg, has_ph, F, n_cand)
+                      for seg in segments]
+        rows = [st.rows for seg in self.steps for st in seg]
+        ends = np.cumsum([len(r) for r in rows]).tolist()
+        starts = iter([0] + ends)
+        self.offs = [[next(starts) for _ in seg] for seg in self.steps]
+        self.sched = _upload(np.concatenate(rows) if rows
+                             else np.zeros(0, np.int64), dev)
+        ctx.reset(dev_planes)
+        self.counts = dict.fromkeys(COUNTS, 0)
 
     # ------------------------------------------------------------ the scan
     def run_segment(self, si):
-        """Every rank step of segment si, in order."""
-        seg, rows = self.segments[si], self.rows[si]
-        out = {ck: [] for ck in seg}
-        for r in range(SEG):
-            live = {}
-            for ck, sr in seg.items():
-                a, b = sr.off[r], sr.off[r + 1]
-                if b > a:
-                    live[ck] = ({f: t[a:b] for f, t in rows[ck].items()},
-                                sr.n_ph[r])
-            if live:
-                self.counts['n_commit_steps'] += 1
-                for ck, o in self._step(live).items():
-                    out[ck].append(o)
-        if not self.has_ph:
-            self._post_segment(rows, out)
-        self.ys[si] = {ck: {f: torch.cat([o[f] for o in lst])
-                            for f in lst[0] if f in ('mode', 'cmode',
-                                                     'use')}
-                       for ck, lst in out.items() if lst}
+        """Every rank step of segment si, in order: its rows copied into
+        its shape's buffer, then on CUDA its shape's graph replayed
+        (captured first at the shape's first step), else the step run."""
+        c = self.counts
+        for st, o in zip(self.steps[si], self.offs[si]):
+            key = self.key + (st.sig,)
+            buf = self.ctx.rows_buffer(key, len(st.rows))
+            buf.copy_(self.sched[o:o + len(st.rows)])
+            if buf.is_cuda:
+                g = self.ctx.graphs.get(key)
+                if g is None:
+                    g = self.ctx.capture(
+                        key, lambda: self._step(self._live(st.sig, buf)))
+                    c['n_commit_graph_captures'] += 1
+                graph, k1 = g
+                graph.replay()
+                c['n_commit_graph_replays'] += 1
+            else:
+                k1 = self._step(self._live(st.sig, buf))
+            c['n_commit_steps'] += 1
+            c['n_dq_trellis_launches'] += len(k1)
+            c['n_dq_trellis_positions'] += sum(
+                B * n * m for jobs in k1 for B, n, m in jobs)
+            c['n_commit_rows_live'] += st.live
+            c['n_commit_rows_padded'] += st.pad
+
+    def _live(self, sig, buf):
+        """{class: (fields, has a phantom)} of a step of shape sig, each
+        field a view of its rows buffer (_layout); 'valid' and 'ph' as
+        bool."""
+        live, o = {}, 0
+        for ck, cap, ph in sig:
+            lay, n = _layout(ck, cap, self.key[1], self.has_ph)
+            x = {f: buf[o + a:o + a + int(np.prod(shp))].reshape(shp)
+                 for f, a, shp in lay}
+            for f in ('valid', 'ph'):
+                if f in x:
+                    x[f] = x[f] != 0
+            live[ck] = (x, ph)
+            o += n
+        return live
 
     def _step(self, live):
-        """One rank step over the live rows of every class, in the JAX
-        scan body's four parts: wave A, phase 2, wave B, phase 4. The
-        classes are visited sorted ('C' < 'L' < 'S', sizes ascending):
-        phase 4 relies on that order (see _cu_ranks)."""
+        """One rank step over the padded rows of every class with rows in
+        it (live: _live's), in the JAX scan body's four parts: wave A,
+        phase 2, wave B, phase 4. The classes are visited sorted ('C' <
+        'L' < 'S', sizes ascending): phase 4 relies on that order (see
+        _cu_ranks). Every scatter of the carry is masked by the rows'
+        'valid' (and a winning phantom's flag); the outputs go into the
+        context's output planes (a padded row's into its pad frame, which
+        the fetch does not read). Returns the job shapes of its K1
+        launches, [[(B, n, n) per job] per launch]."""
         W, H = self.W, self.H
-        ry, rcb, rcr, mm, cp, cy, ccb, ccr = self.carry
+        ctx = self.ctx
+        ry, rcb, rcr, mm, cp, cy, ccb, ccr = ctx.carry
         HWc = (H // 2, W // 2)
-        hdrS, hdrL, hdrC = self.hdr
+        hdrS, hdrL, hdrC = ctx.hdr
         classes = sorted(live)
+        k1 = []
         # ---- wave A: luma + derived-chroma predictions against the carry
         # reconstruction (same-rank CUs are never neighbours), then one
         # trellis-RD chain per distinct block size
@@ -577,7 +833,7 @@ class RdScan:
                 pall = intra_pred.predict_all_modes_m(
                     _build_v(ry, bf, bi, g), self.mats[('y', s)], s)
                 p6 = _sel_modes(pall, cl)
-                orig = self.oy[bf[:, None], g['scat'][bi]]
+                orig = ctx.oy[bf[:, None], g['scat'][bi]]
                 K = cl.shape[1]
                 d['cl'] = cl
                 d['luma'] = self._push(A, log2, p6.reshape(-1, s * s),
@@ -587,8 +843,8 @@ class RdScan:
                 gc = self.geo[(tree, log2, 1)]
                 vcb = _build_v(rcb, bf, bi, gc)
                 vcr = _build_v(rcr, bf, bi, gc)
-                d['ocb'] = self.ocb[bf[:, None], gc['scat'][bi]]
-                d['ocr'] = self.ocr[bf[:, None], gc['scat'][bi]]
+                d['ocb'] = ctx.ocb[bf[:, None], gc['scat'][bi]]
+                d['ocr'] = ctx.ocr[bf[:, None], gc['scat'][bi]]
                 mc = self.mats[('c', cs)]
                 if tree == 'S':
                     K = d['cl'].shape[1]
@@ -612,21 +868,20 @@ class RdScan:
                         A, 2, intra_pred.predict_modes_m(vcr, derived, mc),
                         d['ocr'], 1)
             pre[ck] = d
-        resA = self._tq_all(A)
+        resA = self._tq_all(A, k1)
 
         # ---- phase 2: luma ranking + scatters + mode map; derived chroma
         # costs kept for the CCLM comparison
-        out = {}
         for ck in classes:
             tree, log2 = ck
-            x, n_ph = live[ck]
+            x, _n_ph = live[ck]
             d = pre[ck]
             n = d['n']
             bf, bi = x['bf'], x['bi']
-            keep = x['valid'] if n_ph else None
+            keep = x['valid']
             s = 1 << log2
             cs = d['cs']
-            o = {}
+            o = ctx.out[ck]
             if tree != 'C':
                 g = self.geo[(tree, log2, 0)]
                 qy, recy, ssd, level = _got(resA, d['luma'])
@@ -640,16 +895,16 @@ class RdScan:
                 lm = torch.where(bx > 0, mm[bf, li.clamp(min=0)], 0)
                 am = torch.where((by & ((1 << self.log2_ctu) - 1)) != 0,
                                  mm[bf, ai.clamp(min=0)], 0)
-                mb = self.T[lm[:, None].long(), am[:, None].long(), d['cl']]
+                mb = ctx.T[lm[:, None].long(), am[:, None].long(), d['cl']]
                 cost_y_mat = _cost16384(ssd.reshape(n, K),
-                                        level.reshape(n, K), mb, self.lam)
+                                        level.reshape(n, K), mb, ctx.lam)
                 cost = cost_y_mat
                 if tree == 'S':
                     qcb, reccb, ssdcb, lvlcb = _got(resA, d['cb'])
                     qcr, reccr, ssdcr, lvlcr = _got(resA, d['cr'])
                     ssd_c = (ssdcb + ssdcr).reshape(n, K)
                     lvl_c = (lvlcb + lvlcr).reshape(n, K)
-                    cost = cost + _cost16384(ssd_c, lvl_c, 0.0, self.lam)
+                    cost = cost + _cost16384(ssd_c, lvl_c, 0.0, ctx.lam)
                 cost = torch.where(x['cands'] < 0, float(BIG_COST), cost)
                 win = cost.argmin(1)                      # first index
                 m_win = _sel_win(d['cl'], win)
@@ -659,18 +914,15 @@ class RdScan:
                 _put(ry, bf, rows, recy_w, keep)
                 crow = g['cells'][bi]
                 _put(mm, bf, crow, m_win[:, None].expand(crow.shape), keep)
-                o['mode'] = m_win.to(torch.int8)
-                if self.has_ph:
-                    # in-step coefficient scatter (a later phantom must be
-                    # able to overwrite these rows in scan order)
-                    _put(cy, bf, rows, qy_w, keep)
-                else:
-                    o['qy'] = qy_w
+                o['mode'][bf, bi] = m_win.to(torch.int8)
+                # in-step coefficient scatter (a later phantom must be
+                # able to overwrite these rows in scan order)
+                _put(cy, bf, rows, qy_w, keep)
                 cost_w = _sel_win(cost_y_mat, win)
                 if tree == 'L' and self.has_ph:
                     # L CUs cannot be phantoms: their cost goes into the
                     # cost plane here
-                    _add_at(cp, bf, g['cells'][bi, 0], cost_w + hdrL)
+                    _add_at(cp, bf, g['cells'][bi, 0], cost_w + hdrL, keep)
                 if tree == 'S':
                     d['cost_y_w'] = cost_w
                     d['qcb_w'] = _sel_win(qcb.reshape(n, K, -1), win) \
@@ -680,8 +932,8 @@ class RdScan:
                     d['rcb_w'] = _sel_win(reccb.reshape(n, K, -1), win)
                     d['rcr_w'] = _sel_win(reccr.reshape(n, K, -1), win)
                     d['cost_d'] = _cost16384(_sel_win(ssd_c, win),
-                                             _sel_win(lvl_c, win), self.ncc,
-                                             self.lam)
+                                             _sel_win(lvl_c, win), ctx.ncc,
+                                             ctx.lam)
                     d['derived'] = m_win
                     d['recy_w'] = recy_w
                     d['qy_w'] = qy_w
@@ -690,9 +942,8 @@ class RdScan:
                 qcr_w, rcr_w, scr, lcr = _got(resA, d['cr'])
                 d['qcb_w'], d['rcb_w'] = qcb_w, rcb_w
                 d['qcr_w'], d['rcr_w'] = qcr_w, rcr_w
-                d['cost_d'] = _cost16384(scb + scr, lcb + lcr, self.ncc,
-                                         self.lam)
-            out[ck] = o
+                d['cost_d'] = _cost16384(scb + scr, lcb + lcr, ctx.ncc,
+                                         ctx.lam)
 
         # ---- wave B: best-of-3 CCLM per chroma CU on the UPDATED luma,
         # then one trellis chain per chroma size
@@ -744,7 +995,7 @@ class RdScan:
                                       d['ocb'], 1)
                 d['ccr'] = self._push(Bj, lgc, pcr3.gather(0, idx)[0],
                                       d['ocr'], 1)
-        resB = self._tq_all(Bj)
+        resB = self._tq_all(Bj, k1)
 
         # ---- phase 4: CCLM-vs-derived decision, chroma scatters and the
         # in-scan refine resolution (phantom vs accumulated region cost)
@@ -758,7 +1009,7 @@ class RdScan:
             bf, bi = x['bf'], x['bi']
             valid = x['valid']
             gc = self.geo[(tree, log2, 1)]
-            o = out[ck]
+            o = ctx.out[ck]
             cmode = d['derived']
             cost_ch = d['cost_d']
             qcb_w, rcb_w = d['qcb_w'], d['rcb_w']
@@ -767,8 +1018,8 @@ class RdScan:
                 qcb_c, rcb_c, scb, lcb = _got(resB, d['ccb'])
                 qcr_c, rcr_c, scr, lcr = _got(resB, d['ccr'])
                 pick = d['pick']
-                cost_c = _cost16384(scb + scr, lcb + lcr, self.cclm_mb[pick],
-                                    self.lam)
+                cost_c = _cost16384(scb + scr, lcb + lcr, ctx.cclm_mb[pick],
+                                    ctx.lam)
                 use = cost_c < d['cost_d']                # derived wins ties
                 cmode = torch.where(use, 81 + pick, cmode)
                 cost_ch = torch.where(use, cost_c, cost_ch)
@@ -779,7 +1030,7 @@ class RdScan:
                 rcb_w = torch.where(use[:, None], rcb_c, rcb_w)
                 rcr_w = torch.where(use[:, None], rcr_c, rcr_w)
             cost_cu = (d['cost_y_w'] + cost_ch if tree == 'S' else cost_ch)
-            keep = valid if n_ph else None
+            keep = valid
             if self.has_ph and tree == 'S':
                 gl = self.geo[(tree, log2, 0)]
                 cells_r = gl['cells'][bi]                     # (n, n4c)
@@ -790,16 +1041,13 @@ class RdScan:
                     cost_leaf = cost_cu + hdrS
                     use_ph = x['ph'] & (region > cost_leaf)
                     keep = valid | use_ph
-                    o['use'] = use_ph
+                    o['use'][bf, bi] = use_ph
                     prow = gl['scat'][bi]
                     _put(ry, bf, prow, d['recy_w'], use_ph)
                     _put(cy, bf, prow, d['qy_w'], use_ph)
                     _put(mm, bf, cells_r,
                          d['derived'][:, None].expand(cells_r.shape), use_ph)
-                else:
-                    o['use'] = torch.zeros_like(valid)
-                _add_at(cp, bf, cells_r[:, 0], cost_cu + hdrS,
-                        valid if n_ph else None)
+                _add_at(cp, bf, cells_r[:, 0], cost_cu + hdrS, valid)
                 if n_ph:
                     # a winning phantom resets its region to its own leaf
                     # cost (nested refines then see the min)
@@ -810,18 +1058,14 @@ class RdScan:
                 bx8 = (bi % (W // 8)) * 8
                 by8 = (bi // (W // 8)) * 8
                 _add_at(cp, bf, (by8 >> 2) * (W >> 2) + (bx8 >> 2),
-                        cost_ch + hdrC)
+                        cost_ch + hdrC, valid)
             crows = gc['scat'][bi]
             _put(rcb, bf, crows, rcb_w, keep)
             _put(rcr, bf, crows, rcr_w, keep)
-            if self.has_ph:
-                _put(ccb, bf, crows, qcb_w.reshape(n, -1), keep)
-                _put(ccr, bf, crows, qcr_w.reshape(n, -1), keep)
-            else:
-                o['qcb'] = qcb_w.reshape(n, -1)
-                o['qcr'] = qcr_w.reshape(n, -1)
-            o['cmode'] = cmode.to(torch.int8)
-        return out
+            _put(ccb, bf, crows, qcb_w.reshape(n, -1), keep)
+            _put(ccr, bf, crows, qcr_w.reshape(n, -1), keep)
+            o['cmode'][bf, bi] = cmode.to(torch.int8)
+        return k1
 
     def _push(self, jobs, lg, pred, orig, c):
         """Queue one trellis-RD job of block size 2^lg for component class
@@ -830,14 +1074,15 @@ class RdScan:
         full = functools.partial(torch.full, (n,), dtype=torch.int32,
                                  device=pred.device)
         jobs.setdefault(lg, []).append(
-            (pred, orig, full(int(self.ls_tab[c, lg - 2])),
-             full(int(self.bd_tab[c, lg - 2]))))
+            (pred, orig, full(int(self.ctx.ls_tab[c, lg - 2])),
+             full(int(self.ctx.bd_tab[c, lg - 2]))))
         return lg, len(jobs[lg]) - 1
 
-    def _tq_all(self, A):
+    def _tq_all(self, A, k1):
         """DCT -> trellis (K1, one launch for the wave) -> dequant ->
-        inverse -> reconstruct -> SSD for every job of one wave. Returns
-        {lg: [(q, rec, ssd, level) per job]}."""
+        inverse -> reconstruct -> SSD for every job of one wave; the
+        launch's job shapes appended to k1. Returns {lg: [(q, rec, ssd,
+        level) per job]}."""
         staged = []
         tr_jobs = []
         for lg in sorted(A):
@@ -852,10 +1097,9 @@ class RdScan:
             tr_jobs.append((t, ls_r, bd_r, lg))
         tr_out = []
         if tr_jobs:
-            tr_out = ktr.trellis_rate_batch(tr_jobs, self.lam_dq, self.lv)
-            self.counts['n_dq_trellis_launches'] += 1
-            self.counts['n_dq_trellis_positions'] += sum(
-                t.shape[0] * t.shape[1] * t.shape[2] for t, _, _, _ in tr_jobs)
+            tr_out = ktr.trellis_rate_batch(tr_jobs, self.ctx.lam_dq,
+                                            self.ctx.lv)
+            k1.append([tuple(t.shape) for t, _, _, _ in tr_jobs])
         res_map = {}
         for (lg, pred, orig, ls_r, bd_r, jobs), (q, level) in zip(staged,
                                                                   tr_out):
@@ -874,46 +1118,31 @@ class RdScan:
             res_map[lg] = out
         return res_map
 
-    def _post_segment(self, rows, out):
-        """Without phantoms the scan never reads the coefficient planes:
-        one scatter per class after the segment writes every winner."""
-        cy, ccb, ccr = self.carry[5:]
-        for ck, lst in out.items():
-            if not lst:
-                continue
-            tree, log2 = ck
-            bf, bi = rows[ck]['bf'], rows[ck]['bi']
-            if tree != 'C':
-                g = self.geo[(tree, log2, 0)]
-                _put(cy, bf, g['scat'][bi], torch.cat([o['qy'] for o in lst]))
-            if tree != 'L':
-                crows = self.geo[(tree, log2, 1)]['scat'][bi]
-                _put(ccb, bf, crows, torch.cat([o['qcb'] for o in lst]))
-                _put(ccr, bf, crows, torch.cat([o['qcr'] for o in lst]))
-
     # ----------------------------------------------------------- the fetch
     def finish(self):
-        """Fetch the small per-step outputs and the planes once; write the
-        winner modes, refine flags and coefficients into the CUs. Returns
-        ([(ry, rcb, rcr)] int32 planes, {id(alt_cu): leaf won})."""
+        """Fetch the planes once; write the winner modes, refine flags and
+        coefficients into the CUs. Returns ([(ry, rcb, rcr)] int32
+        planes, {id(alt_cu): leaf won})."""
         return self.write_back(self.fetch())
 
     def fetch(self):
-        """The final planes and every segment's per-step outputs on the
-        host: the scan's one wait for the device."""
-        fin = [t.cpu().numpy() for t in _carry_final(self.carry)]
-        ys = [{ck: {f: t.cpu().numpy() for f, t in o.items()}
-               for ck, o in seg_ys.items()} for seg_ys in self.ys]
-        return fin, ys
+        """The scan's frames of the final planes and of its classes'
+        output planes on the host: the scan's one wait for the device."""
+        F = self.F
+        fin = [t.cpu().numpy() for t in _carry_final(self.ctx.carry, F)]
+        outs = {ck: {f: t[:F].cpu().numpy()
+                     for f, t in self.ctx.out[ck].items()}
+                for ck in {ck for seg in self.segments for ck in seg}}
+        return fin, outs
 
     def write_back(self, host):
         """fetch()'s arrays into the CUs: winner modes, refine flags and
         coefficients. Returns finish()'s planes and refine map."""
         W, H, F = self.W, self.H, self.F
-        fin, ys = host
+        fin, outs = host
         use_map = {}
-        for seg, seg_ys in zip(self.segments, ys):
-            _extract_costs_modes(seg, seg_ys, use_map)
+        for seg in self.segments:
+            _extract_costs_modes(seg, outs, use_map)
         ry, rcb, rcr, cyp, ccbp, ccrp = fin
         ry = ry.astype(np.int32).reshape(F, H, W)
         rcb = rcb.astype(np.int32).reshape(F, H // 2, W // 2)
@@ -938,24 +1167,26 @@ def _dev_table(key, dev):
     return _upload(_mpm_bits16384(key), dev)
 
 
-def _extract_costs_modes(seg, ys, use_map):
-    """Winner modes and refine flags from a segment's small outputs, one
-    row per schedule row. (Per-CU costs stay on device — the in-scan
-    refine resolution is their only consumer.)"""
+def _extract_costs_modes(seg, outs, use_map):
+    """Winner modes and refine flags of a segment's rows from their
+    classes' output planes, read at each row's (bf, bi). (Per-CU costs
+    stay on device — the in-scan refine resolution is their only
+    consumer.)"""
     for ck, rows in seg.items():
         tree = ck[0]
-        o = ys[ck]
+        at = (rows.fields['bf'], rows.fields['bi'])
+        o = {f: v[at].tolist() for f, v in outs[ck].items()}
         # modes are written for phantoms too: a refine-flipped merged
         # leaf becomes the final CU with the modes its phantom
         # evaluation ranked best
         if tree != 'C':
-            for (cu, ph), m in zip(rows.cus, o['mode'].tolist()):
+            for (cu, ph), m in zip(rows.cus, o['mode']):
                 cu.luma_mode = m
         if tree != 'L':
-            for (cu, ph), m in zip(rows.cus, o['cmode'].tolist()):
+            for (cu, ph), m in zip(rows.cus, o['cmode']):
                 cu.chroma_mode = m
-        if 'use' in o:
-            for (cu, ph), u in zip(rows.cus, o['use'].tolist()):
+        if 'ph' in rows.fields:
+            for (cu, ph), u in zip(rows.cus, o['use']):
                 if ph:
                     use_map[id(cu)] = bool(u)
 
