@@ -77,11 +77,12 @@ Run from the root of a checkout. Phases, each fatal on failure:
      bound;
   9. the commit paths, on CIF frames at QP 32: qp_delta_pattern=(-3, 0, 4)
      on 2 frames (the three decoders reproduce the reconstruction, card
-     bytes == CPU bytes, wall and phase times); rd_commit=False,
-     trellis_commit=False and WRENC_STAGE_A_SELECT=host on 16 frames
-     each, warm-up then timed with the counters reset just before and read
-     just after (fps, phase times, decode == reconstruction, card bytes ==
-     CPU bytes on 2 frames); the apply-decisions prototype
+     bytes == CPU bytes, wall and phase times); rd_commit=False and
+     trellis_commit=False on 16 frames each (host selection runs under
+     the row meshes of phase 10), warm-up then timed with the counters
+     reset just before and read just after (fps, phase times, decode ==
+     reconstruction, card bytes == CPU bytes on 2 frames); the
+     apply-decisions prototype
      commit_frame_device on the trees of 2 frames of a trellis_commit=False,
      rd_commit=False search: reconstruction and levels == the NumPy
      _commit's, K2's launches counted from 0 == the plan's steps, padded
@@ -932,24 +933,6 @@ def phase_card_vs_cpu():
     return out
 
 
-@contextlib.contextmanager
-def _env(key, value):
-    """os.environ[key] = value inside the block (None: unset), restored
-    after."""
-    old = os.environ.get(key)
-    if value is None:
-        os.environ.pop(key, None)
-    else:
-        os.environ[key] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop(key, None)
-        else:
-            os.environ[key] = old
-
-
 def _same_planes(a, b, name):
     if len(a) != len(b) or not all(
             (a[k][c] == b[k][c]).all() for k in range(len(a))
@@ -960,8 +943,8 @@ def _same_planes(a, b, name):
 def phase_commit_paths():
     """The commit paths on CIF synthetic frames at QP 32 (the main path's
     geometry): per-QG QP (qp_delta_pattern) on 2 frames, its three
-    decoders and card bytes == CPU bytes; rd_commit=False,
-    trellis_commit=False and WRENC_STAGE_A_SELECT=host on 16 frames each,
+    decoders and card bytes == CPU bytes; rd_commit=False and
+    trellis_commit=False on 16 frames each,
     warm-up then timed with the counters reset just before and read just
     after, decode == reconstruction, card bytes == CPU bytes on 2 frames;
     the apply-decisions prototype commit_frame_device on the trees of 2
@@ -998,13 +981,10 @@ def phase_commit_paths():
     log(f"  phase_times (s): {json.dumps(phases)}")
 
     cfg = _cfg(0)
-    for name, kw, sel in (("rd_commit=False", {"rd_commit": False}, None),
-                          ("trellis_commit=False",
-                           {"trellis_commit": False}, None),
-                          ("WRENC_STAGE_A_SELECT=host", {}, "host")):
-        with _env("WRENC_STAGE_A_SELECT", sel):
-            search = WavefrontSearch(cfg, **kw)
-            cpu = WavefrontSearch(cfg, device="cpu", **kw)
+    for name, kw in (("rd_commit=False", {"rd_commit": False}),
+                     ("trellis_commit=False", {"trellis_commit": False})):
+        search = WavefrontSearch(cfg, **kw)
+        cpu = WavefrontSearch(cfg, device="cpu", **kw)
         enc = Encoder(cfg, search=search)
         enc.encode(frames)                                 # warm-up
         stream, recons, dt, launches = _timed_encode(enc, frames,
@@ -1052,9 +1032,9 @@ def _proto(frames):
     launches = dict.fromkeys(_counters(), 0)
     for fi, (trees, _) in enumerate(search.encode_frames(frames)):
         ref, mine = copy.deepcopy(trees), copy.deepcopy(trees)
-        search.orig = [np.asarray(p, np.int32) for p in frames[fi]]
+        orig = [np.asarray(p, np.int32) for p in frames[fi]]
         t0 = time.perf_counter()
-        rec_np = search._commit(ref)
+        rec_np = search._commit(ref, orig)
         np_s = time.perf_counter() - t0
         cus = search._collect_cus(mine)
         steps = dc.plan_steps(cfg, cus)
@@ -1651,7 +1631,7 @@ def _device_groups(cfg):
     first call captures that scan's graphs, the second replays them;
     reconstructions equal to the two halves encoded apart (each a
     16-frame scan on the main thread), decode == reconstruction. Then
-    48 frames of 64x64 in commit groups of 16 (WRENC_COMMIT_GROUP): each
+    48 frames of 64x64 in commit groups of 16 (_commit_group_frames): each
     group's graphs captured in the worker while the main thread runs the
     next chunk's stage A and decide; card bytes == CPU bytes."""
     from wrenc_tpu_torch.core.config import EncoderConfig
@@ -1684,13 +1664,15 @@ def _device_groups(cfg):
         f"reconstructions == two 16-frame calls'; decode == reconstruction")
     small = EncoderConfig(width=64, height=64, qp=32)
     frames = synth_frames(48, 64, 64, seed=5)
-    with _env("WRENC_COMMIT_GROUP", "16"):
-        s_gpu, r_gpu, dt, _ = _timed_encode(Encoder(small, search=(
-            WavefrontSearch(small, **DEVICE_ENGINE))), frames, ["dq_greedy"])
-        t0 = time.perf_counter()
-        s_cpu, _ = Encoder(small, search=WavefrontSearch(
-            small, device="cpu", **DEVICE_ENGINE)).encode(frames)
-        t_cpu = time.perf_counter() - t0
+    searches = (WavefrontSearch(small, **DEVICE_ENGINE),
+                WavefrontSearch(small, device="cpu", **DEVICE_ENGINE))
+    for search in searches:
+        search._commit_group_frames = lambda: 16
+    s_gpu, r_gpu, dt, _ = _timed_encode(Encoder(small, search=searches[0]),
+                                        frames, ["dq_greedy"])
+    t0 = time.perf_counter()
+    s_cpu, _ = Encoder(small, search=searches[1]).encode(frames)
+    t_cpu = time.perf_counter() - t0
     if s_gpu != s_cpu:
         raise AssertionError("device engine, 64x64 groups of 16: card bytes "
                              "!= CPU bytes")
@@ -1821,7 +1803,8 @@ def phase_mesh():
     stage-A kernel launches once per cell and QT size in every chunk, and
     the card bytes equal the single-device card bytes of phases 4 / 8,
     decode == reconstruction. Then 1080p on a (1, 2) mesh: one chunk's
-    stage A equals the single-device chunk's (host selection) exactly,
+    stage A equals the single-device chunk's (without its selection)
+    exactly,
     and a 1-frame encode gives the single-device encode's bytes (native
     chroma, as a mesh runs it)."""
     import numpy as np
@@ -1898,18 +1881,19 @@ def phase_mesh():
     cfg = EncoderConfig(width=P1080[0], height=P1080[1], qp=32)
     mesh, info = _mesh(2, 1)
     f1 = synth_frames(1, *P1080, seed=2)
-    with _env("WRENC_STAGE_A_SELECT", "host"):
-        single = WavefrontSearch(cfg)
+    single = WavefrontSearch(cfg)
     msearch = WavefrontSearch(cfg, mesh=mesh)
     got = {}
-    for key, search in (("single", single), ("mesh", msearch)):
+    for key, search, run in (
+            ("single", single, lambda: _unselected_stage_a(single, f1)),
+            ("mesh", msearch, lambda: msearch._dispatch_stage_a(f1)[2])):
         search._decide_chunk(search._dispatch_stage_a(f1))     # tables
         counters = _counters()
         for f in counters.values():
             f.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = search._dispatch_stage_a(f1)[2]
+        res = run()
         t1 = time.perf_counter()
         host = wf._fetch_cells(res)
         t2 = time.perf_counter()
@@ -1961,6 +1945,19 @@ def phase_mesh():
     out["wall_seconds"] = time.perf_counter() - t_phase
     log(f"mesh phase: {out['wall_seconds']:.1f} s")
     return out
+
+
+def _unselected_stage_a(search, frames):
+    """One chunk's luma stage A of a single-device search without the
+    winner selection (fused_luma_stage_a, sel=False), as a row mesh's
+    band stage A returns it; still on the card."""
+    from wrenc_tpu_torch.search import wavefront as wf
+    cfg, a = search.cfg, search._stage_a_args()
+    return wf.fused_luma_stage_a(
+        search._upload([f[0] for f in frames]), cfg.width, cfg.height,
+        cfg.log2_ctu_size, tuple(search._sizes()), a['K'], a['trellis'],
+        a['ls'], a['bd'], a['lam_dq'], a['lv'], a['lam'], a['mats'],
+        sel=False)
 
 
 def _cell_times(search, frames, kname):

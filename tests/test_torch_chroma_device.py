@@ -241,17 +241,19 @@ def test_device_chroma_matches_native_chroma(w, h, qp, seeds):
     assert ws._chroma_device
     got = {}
     orig = ws._prefill_chroma_device
+    frames = [synth_frame(w, h, seed=s) for s in seeds]
 
     def spy(cache, luma_mode_b, sizes, F, dev_planes):
         orig(cache, luma_mode_b, sizes, F, dev_planes)
         ncache = {}
-        ws._prefill_chroma_cache(ncache, luma_mode_b, sizes, F)
+        ws._prefill_chroma_cache(ncache, luma_mode_b, sizes, [
+            [np.asarray(p, np.int32) for p in f] for f in frames])
         got['dev'], got['nat'] = dict(cache), ncache
         raise _Captured
 
     ws._prefill_chroma_device = spy
     with pytest.raises(_Captured):
-        ws.encode_frames([synth_frame(w, h, seed=s) for s in seeds])
+        ws.encode_frames(frames)
     dev, nat = got['dev'], got['nat']
     assert set(dev) == set(nat)
     ties = total = 0

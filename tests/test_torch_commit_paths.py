@@ -4,8 +4,11 @@ package's, on the CPU.
 Per-QG QP (qp_delta_pattern, the NumPy rank-wavefront commit), the
 non-RD and greedy commits, the device engine's fallback under them, the
 apply-decisions prototype `commit_frame_device`, the patch-based CCLM
-prediction and host-side luma selection (WRENC_STAGE_A_SELECT=host): the
-same seeded inputs through both packages, every comparison exact. On the
+prediction and host-side luma selection (`_select_modes`, which a row
+mesh runs): the same seeded inputs through both packages, every
+comparison exact. The decide as a stage of values: the search keeps no
+chunk state, so chunks decide in any order and every multi-chunk call
+overlaps its commit. On the
 CPU the prototype's residual step runs K2's plain twin; chip_smoke.py
 holds K2 against the twin on the card at the prototype's shapes.
 """
@@ -34,6 +37,7 @@ from wrenc_tpu_torch.kernels import np_ops, refs
 from wrenc_tpu_torch.kernels import quantize as kq
 from wrenc_tpu_torch.search import WavefrontSearch
 from wrenc_tpu_torch.search import device_commit as tdc
+from wrenc_tpu_torch.search import wavefront as twf
 
 from tests.test_torch_native_ref import jax_native_host_build  # noqa: F401
 from tests.test_entropy_roundtrip import synth_frame
@@ -154,8 +158,7 @@ def test_numpy_commit_matches_jax(trellis_commit):
     want = js._commit(trees)
     ts = WavefrontSearch(_port_cfg(cfg), trellis_commit=trellis_commit,
                          rd_commit=False, device='cpu')
-    ts.orig = [np.asarray(p, np.int32) for p in frame]
-    got = ts._commit(mine)
+    got = ts._commit(mine, [np.asarray(p, np.int32) for p in frame])
     for c in range(3):
         assert (got[c] == want[c]).all(), c
     _same_levels(_levels(ts._collect_cus(mine)),
@@ -176,9 +179,8 @@ def test_commit_frame_device_matches(w, h, qp, seed):
                            rd_commit=False)
     ts = WavefrontSearch(_port_cfg(cfg), trellis_commit=False,
                          rd_commit=False, device='cpu')
-    ts.orig = [np.asarray(p, np.int32) for p in frame]
     t_np, t_dev, j_dev = (copy.deepcopy(trees) for _ in range(3))
-    rec_np = ts._commit(t_np)
+    rec_np = ts._commit(t_np, [np.asarray(p, np.int32) for p in frame])
     kq.greedy_depquant.launches = 0
     cus = ts._collect_cus(t_dev)
     rec_dev = tdc.commit_frame_device(_port_cfg(cfg), frame, cus,
@@ -257,13 +259,23 @@ def test_predict_cclm_matches_jax_and_numpy(cs):
 
 
 # ------------------------------------------------- host-side selection
+def _unselected(ts, frames):
+    """The port's luma stage A of one chunk without the winner selection
+    (fused_luma_stage_a, sel=False): {s: (cands, base)} on the host."""
+    cfg, a, sizes = ts.cfg, ts._stage_a_args(), ts._sizes()
+    res = twf.fused_luma_stage_a(
+        ts._upload([f[0] for f in frames]), cfg.width, cfg.height,
+        cfg.log2_ctu_size, tuple(sizes), a['K'], a['trellis'], a['ls'],
+        a['bd'], a['lam_dq'], a['lv'], a['lam'], a['mats'], sel=False)
+    return {s: tuple(x.numpy() for x in res[s]) for s in sizes}
+
+
 def _stage_a_host(cfg, frames):
     """Both packages' non-selecting luma stage A on the same chunk:
-    (port search, {s: (cands, base)} port, JAX)."""
+    (port search, JAX search, sizes, {s: (cands, base)} port, JAX)."""
     ts = WavefrontSearch(_port_cfg(cfg), device='cpu')
-    ts._select_device = False
-    _, sizes, res, _ = ts._dispatch_stage_a(frames)
-    port = {s: tuple(x.numpy() for x in res[s]) for s in sizes}
+    sizes = ts._sizes()
+    port = _unselected(ts, frames)
     js = JaxSearch(cfg)
     js._select_device = False
     _, _, jres, _ = js._dispatch_stage_a(frames)
@@ -299,20 +311,35 @@ def test_select_modes_matches_jax():
 
 
 @pytest.mark.parametrize("w,h,qp", [(64, 64, 30), (96, 64, 27)])
-def test_host_select_encode_matches_jax(w, h, qp, monkeypatch):
-    monkeypatch.setenv("WRENC_STAGE_A_SELECT", "host")
+def test_host_select_encode_matches_jax(w, h, qp):
+    """The host selection (_select_modes, a row mesh's) and the device
+    one (_select_modes_dev, every other search's) on the same unselected
+    stage-A output: the same winners and the same ranked candidates; the
+    costs within one f32 step (the host rounds base + sc * bits twice,
+    the device once, as XLA's fused multiply-add)."""
     cfg = EncoderConfig(width=w, height=h, qp=qp)
     frames = [synth_frame(w, h, seed=qp + k) for k in range(2)]
-    search, _, _ = _check_encode(cfg, frames)
-    assert not search._select_device
-    assert 'host_select' in search.phase_times
+    ts = WavefrontSearch(_port_cfg(cfg), device='cpu')
+    a = ts._stage_a_args()
+    sizes = ts._sizes()
+    consts = twf._luma_consts(w, h, ts.cfg.log2_ctu_size, tuple(sizes),
+                              ts.device)
+    for s, (cands, base) in _unselected(ts, frames).items():
+        mode, cost, ranked, ranked_cost = ts._select_modes(s, cands, base)
+        d_ranked, d_cost, d_top2 = (x.numpy() for x in twf._select_modes_dev(
+            torch.as_tensor(base), torch.as_tensor(cands).long(), h // s,
+            w // s, consts[s][5], *a['seltabs']))
+        assert (d_ranked == ranked).all() and (d_ranked[..., 0] == mode).all()
+        for d, h_ in ((d_cost, cost), (d_top2, ranked_cost[..., :2])):
+            assert d.dtype == h_.dtype == np.float32
+            assert (np.abs(d - h_) <= np.spacing(np.abs(h_))).all(), s
 
 
 @pytest.mark.parametrize("case", ["non_rd", "qp_delta"])
 def test_multi_chunk_matches_jax(case):
-    """Nine 64x64 frames make two stage-A chunks: the non-RD commit runs
-    in the worker thread under the next chunk's decide, the per-QG
-    commit in turn after each chunk (it reads instance state)."""
+    """Nine 64x64 frames make two stage-A chunks: the commit of the first
+    (the non-RD native one, or the per-QG NumPy one) runs in the worker
+    thread under the next chunk's decide."""
     kw = {}
     cfg = EncoderConfig(width=64, height=64, qp=33)
     if case == "non_rd":
@@ -321,4 +348,76 @@ def test_multi_chunk_matches_jax(case):
         cfg.qp_delta_pattern = (4, -2)
     frames = [synth_frame(64, 64, seed=80 + k) for k in range(9)]
     search, _, _ = _check_encode(cfg, frames, **kw)
-    assert ('host_commit_work' in search.phase_times) == (case == "non_rd")
+    assert 'host_commit_work' in search.phase_times
+
+
+# ------------------------------------------------ the decide as values
+# what the search held of a chunk or a frame before the decide returned
+# its decisions as values
+CHUNK_STATE = {"batch", "orig", "luma_cands", "luma_cand_costs", "split",
+               "refine", "luma_mode", "cclm_choice", "scipu_choice",
+               "cand_mat", "_luma_marks"}
+
+
+def _cu_key(cu):
+    return None if cu is None else (
+        cu.x, cu.y, cu.log2, cu.tree, cu.luma_mode, cu.chroma_mode,
+        None if cu.cands is None else np.asarray(cu.cands).tolist())
+
+
+def _tree_key(n):
+    """A CtNode tree as nested tuples of its decisions."""
+    return (n.x, n.y, n.log2, n.cqt_depth, n.tree, n.mode_type, n.split,
+            n.refine, _cu_key(n.cu), _cu_key(n.alt_cu),
+            tuple(_tree_key(c) for c in n.children))
+
+
+def test_search_keeps_no_chunk_state():
+    """After a two-chunk call the search holds the names __init__ set
+    and none of a chunk's or a frame's."""
+    search = WavefrontSearch(_port_cfg(EncoderConfig(width=64, height=64,
+                                                     qp=33)), device='cpu')
+    fresh = set(vars(search))
+    out = search.encode_frames([synth_frame(64, 64, seed=80 + k)
+                                for k in range(9)])
+    assert len(out) == 9 and 'host_commit_work' in search.phase_times
+    assert set(vars(search)) == fresh and not fresh & CHUNK_STATE
+
+
+def test_chunks_decide_in_any_order():
+    """Two chunks dispatched together and decided B first, then A, give
+    the trees that a fresh search gives deciding A, then B."""
+    cfg = _port_cfg(EncoderConfig(width=64, height=64, qp=31))
+    a = [synth_frame(64, 64, seed=s) for s in (31, 32)]
+    b = [synth_frame(64, 64, seed=33)]
+
+    def keys(trees):
+        return [[_tree_key(t) for t in f] for f in trees]
+    search = WavefrontSearch(cfg, device='cpu')
+    da, db = search._dispatch_stage_a(a, 0), search._dispatch_stage_a(b, 1)
+    tb = keys(search._decide_chunk(db, 1)[1])
+    ta = keys(search._decide_chunk(da, 0)[1])
+    fresh = WavefrontSearch(cfg, device='cpu')
+    want = [keys(fresh._decide_chunk(fresh._dispatch_stage_a(c, k), k)[1])
+            for k, c in enumerate((a, b))]
+    assert [ta, tb] == want and len(ta) == 2 and len(tb) == 1
+
+
+def test_trees_assemble_from_the_decision_alone():
+    """_assemble_trees needs no search: a 64x64 decision that splits only
+    the first CTU's 32x32 gives four 16x16 leaves there and 32x32 leaves
+    elsewhere, each with its size's mode, CCLM choice and candidates."""
+    cfg = _port_cfg(EncoderConfig(width=64, height=64, qp=32))
+    n = {s: (64 // s) ** 2 for s in (4, 8, 16, 32)}
+    split = {32: [[True, False], [False, False]], 16: [[False] * 4] * 4}
+    dec = twf.FrameDecision(
+        split, {}, {s: [s + 1] * n[s] for s in n},
+        {32: [-1] * n[32], 16: [82] * n[16]}, None,
+        {s: np.full((n[s], 6), s, np.int32) for s in n})
+    trees = twf._assemble_trees(cfg, dec)
+    assert [(t.x, t.y, t.split) for t in trees] == [
+        (0, 0, True), (32, 0, False), (0, 32, False), (32, 32, False)]
+    leaves = [(n.cu.log2, n.cu.luma_mode, n.cu.chroma_mode,
+               int(n.cu.cands[0]))
+              for t in trees for n in (t.children if t.split else [t])]
+    assert leaves == [(4, 17, 82, 16)] * 4 + [(5, 33, 33, 32)] * 3

@@ -479,7 +479,8 @@ def test_device_engine_commit_groups(monkeypatch):
     want, _ = Encoder(_port_cfg(cfg), search=_device_search(cfg)).encode(
         frames)
     monkeypatch.setattr(WavefrontSearch, "DEVICE_BATCH_BUCKETS", (1,))
-    monkeypatch.setenv("WRENC_COMMIT_GROUP", "2")
+    monkeypatch.setattr(WavefrontSearch, "_commit_group_frames",
+                        lambda self: 2)
     search = _device_search(cfg)
     commits = []
     commit_all = search._commit_all

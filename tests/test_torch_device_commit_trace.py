@@ -31,7 +31,8 @@ def _run(monkeypatch, n_frames, group=None):
     if group:
         # one-frame stage-A chunks, committed `group` frames per scan
         monkeypatch.setattr(WavefrontSearch, "DEVICE_BATCH_BUCKETS", (1,))
-        monkeypatch.setenv("WRENC_COMMIT_GROUP", str(group))
+        monkeypatch.setattr(WavefrontSearch, "_commit_group_frames",
+                            lambda self: group)
     seen = {k: 0 for k in COUNTS}
     batch, step = ktr.trellis_rate_batch, dc.RdScan._step
 

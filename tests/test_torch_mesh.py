@@ -121,9 +121,17 @@ def test_frame_mesh_matches_jax_and_single(cells):
 
 
 def test_frame_mesh_host_select_matches_jax(monkeypatch):
-    monkeypatch.setenv("WRENC_STAGE_A_SELECT", "host")
+    """The (2, 2) mesh at 96x64: its band stage A returns unselected
+    candidates, so the port selects the luma winners on the host
+    (_select_modes), and only there."""
+    calls = []
+    select = WavefrontSearch._select_modes
+    monkeypatch.setattr(WavefrontSearch, "_select_modes",
+                        lambda self, s, *a: calls.append(s) or select(
+                            self, s, *a))
     cfg = EncoderConfig(width=96, height=64, qp=33)
-    _check_mesh(cfg, _frames(96, 64, 4), 2, None)
+    _check_mesh(cfg, _frames(96, 64, 4), 2, 2)
+    assert sorted(set(calls)) == [4, 8, 16, 32] and len(calls) == 4
 
 
 def test_frame_mesh_device_chroma_runs_native_like_jax():

@@ -51,7 +51,7 @@ def test_fused_luma_stage_a_matches_jax(w, h, qp, trellis):
     _, sizes, res_j, _ = JaxSearch(cfg)._dispatch_stage_a(frames)
     ws = WavefrontSearch(config_from_dict(dataclasses.asdict(cfg)),
                          device='cpu')
-    _, sizes_t, res_t, _ = ws._dispatch_stage_a(frames)
+    _, sizes_t, res_t, _, _ = ws._dispatch_stage_a(frames)
     assert sizes_t == sizes
     for s in sizes:
         rk_j, cost_j, c2_j = (np.asarray(x) for x in res_j[s])

@@ -23,21 +23,25 @@ quantizer; `rd_commit=False`: stage A's decisions applied as they are).
 Under `commit_engine='device'` the commit runs on the device instead
 (search/device_commit.py), from planes uploaded once per chunk. Under
 `qp_delta_pattern` (per-QG QP) every CU carries its CTU's QP and the
-NumPy rank-wavefront commit (`_commit`) runs. WRENC_STAGE_A_SELECT=host
-moves the luma winner selection to the host (`_select_modes`, numpy).
+NumPy rank-wavefront commit (`_commit`) runs. The decide is a stage of
+values: each frame's QT decision is a FrameDecision, its trees are built
+from that alone (`_assemble_trees`), and the search object keeps only
+its constants and caches, so any commit overlaps the next chunk.
 
 Under `mesh=` (a `dist.Mesh` of torch devices, one process driving every
 cell) stage A is sharded: the chunk is padded to a multiple of the
 `frame` axis and each frame cell runs `fused_luma_stage_a` on its frames;
 with a `row` axis each cell runs `fused_luma_band_stage_a` on its
-CTU-row band, with a one-row halo copied from the band above, and the
-luma winners are selected on the host. The results are fetched per cell
-and concatenated: bit-identical to one device. A mesh uploads no shared
+CTU-row band, with a one-row halo copied from the band above; that
+stage A returns unselected candidates, so only there the luma winners
+are selected on the host (`_select_modes`). The results are fetched per
+cell and concatenated: bit-identical to one device. A mesh uploads no shared
 planes, so chroma stage A runs in the native library and the device
 commit engine uploads its own planes.
 """
 import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -98,8 +102,7 @@ class WavefrontSearch:
         'native' (env WRENC_CHROMA_STAGE_A; default 'device' under the
         device engine or at >= 0.5 Mpx); trellis_commit False quantizes
         the commit greedily; rd_commit False applies stage A's decisions
-        without re-deciding them. Env WRENC_STAGE_A_SELECT=host selects
-        the luma winners on the host.
+        without re-deciding them.
 
         mesh: optional dist.Mesh with a 'frame' axis and optionally a
         'row' axis: stage A is sharded over its cells (see the module
@@ -123,8 +126,6 @@ class WavefrontSearch:
             and getattr(rm, 'commit_rank_full', 0)
             and getattr(rm, 'commit_rank_trellis', 0)
             and getattr(rm, 'commit_chroma_redecide', 0))
-        self._select_device = os.environ.get(
-            'WRENC_STAGE_A_SELECT', 'device') == 'device'
         auto_chroma = ('device' if (self._device_commit or
                                     cfg.width * cfg.height >= 1 << 19)
                        else 'native')
@@ -165,10 +166,8 @@ class WavefrontSearch:
         self._dev_args = {}
         # summed seconds per phase of the last call (encode_frames resets
         # it), and under keys that start with 'n_' counts (the device
-        # commit engine's); stage A's device marks per chunk while the
-        # recorder is on
+        # commit engine's)
         self.phase_times = {}
-        self._luma_marks = {}
 
     # ------------------------------------------------------------- stage A
     def _approx_mode_bits(self):
@@ -199,13 +198,9 @@ class WavefrontSearch:
     DEVICE_CHUNK_PIXEL_BUDGET = 9_000_000
 
     def _commit_group_frames(self):
-        """Frames per device commit scan (env WRENC_COMMIT_GROUP
-        overrides), as in the JAX package: the rank count does not grow
-        with the frames, so a larger group spreads each step's fixed cost
-        over more of them; 64 up to 0.5 Mpx, else 4."""
-        env = int(os.environ.get('WRENC_COMMIT_GROUP', 0))
-        if env:
-            return env
+        """Frames per device commit scan, as in the JAX package: the rank
+        count does not grow with the frames, so a larger group spreads each
+        step's fixed cost over more of them; 64 up to 0.5 Mpx, else 4."""
         px = self.cfg.width * self.cfg.height
         return 64 if px <= 524_288 else 4
 
@@ -231,10 +226,9 @@ class WavefrontSearch:
         is dispatched BEFORE the host passes of chunk k run (dispatch does
         not synchronize), and the commit of chunk k runs in a worker
         thread (the native call releases the GIL) under chunk k+1's decide
-        phase; the per-QG commit (qp_delta_pattern) reads instance state,
-        so it runs in turn instead. The device commit engine commits
-        several chunks in one scan (_commit_group_frames). Returns
-        [(trees, recon), ...]. Each phase is a span (trace.span) of the
+        phase whenever the call has more than one chunk. The device commit
+        engine commits several chunks in one scan (_commit_group_frames).
+        Returns [(trees, recon), ...]. Each phase is a span (trace.span) of the
         call's root span and of its chunk; phase_times sums them."""
         from concurrent.futures import ThreadPoolExecutor
         self.phase_times = {}
@@ -244,9 +238,7 @@ class WavefrontSearch:
         group_n = 1
         if self._device_commit and max_b < self._commit_group_frames():
             group_n = max(1, self._commit_group_frames() // max_b)
-        # the per-QG QP commit runs frame by frame on the host, in turn
-        overlap = len(chunks) > 1 and not tuple(
-            getattr(self.cfg, 'qp_delta_pattern', ()) or ())
+        overlap = len(chunks) > 1
         with trace.call(), ThreadPoolExecutor(max_workers=1) as pool:
             pending = self._dispatch_stage_a(chunks[0], 0)
             prev = None
@@ -387,13 +379,13 @@ class WavefrontSearch:
 
     def _dispatch_stage_a(self, frames, chunk=0):
         """Dispatch the fused luma stage A for chunk `chunk` of a call;
-        does NOT block. While the recorder is on, device marks around the
-        dispatch wait for _decide_chunk of the same chunk.
-        Returns (batch, sizes, device results, device planes): the results
-        are fused_luma_stage_a's dict, or under a mesh _dispatch_mesh's
-        cells; the planes are (y, cb, cr) uint8 (F', H*W / H*W/4) for the
-        device chroma stage A and the device commit engine, which share
-        the upload, and None when neither runs (always under a mesh)."""
+        does NOT block. Returns (batch, sizes, device results, device
+        planes, marks): the results are fused_luma_stage_a's dict, or under
+        a mesh _dispatch_mesh's cells; the planes are (y, cb, cr) uint8
+        (F', H*W / H*W/4) for the device chroma stage A and the device
+        commit engine, which share the upload, and None when neither runs
+        (always under a mesh); the marks are trace.device_mark's pair
+        around the dispatch, (None, None) with the recorder off."""
         cfg = self.cfg
         batch = [[np.asarray(p, dtype=np.int32) for p in planes]
                  for planes in frames]
@@ -405,7 +397,7 @@ class WavefrontSearch:
             with self._phase('device_dispatch', chunk):
                 res = self._dispatch_mesh(
                     np.stack([b[0] for b in padded]).astype(np.uint8), sizes)
-            return batch, sizes, res, None
+            return batch, sizes, res, None, (None, None)
         a = self._stage_a_args()
         with self._phase('device_dispatch', chunk):
             m0 = trace.device_mark(self.device)
@@ -420,11 +412,9 @@ class WavefrontSearch:
             res = fused_luma_stage_a(
                 planes, cfg.width, cfg.height, cfg.log2_ctu_size,
                 tuple(sizes), a['K'], a['trellis'], a['ls'], a['bd'],
-                a['lam_dq'], a['lv'], a['lam'], a['mats'], a['seltabs'],
-                sel=self._select_device)
-            if m0 is not None:
-                self._luma_marks[chunk] = (m0, trace.device_mark(self.device))
-        return batch, sizes, res, dev_planes
+                a['lam_dq'], a['lv'], a['lam'], a['mats'], a['seltabs'])
+            marks = (m0, trace.device_mark(self.device))
+        return batch, sizes, res, dev_planes, marks
 
     def _dispatch_mesh(self, planes_y, sizes, rank=0, world_size=1):
         """The sharded stage A of one chunk (planes_y: (F', H, W) uint8 on
@@ -452,8 +442,7 @@ class WavefrontSearch:
                 return fused_luma_stage_a(
                     band, W, H, log2_ctu, tuple(sizes), a['K'],
                     a['trellis'], a['ls'], a['bd'], a['lam_dq'], a['lv'],
-                    a['lam'], a['mats'], a['seltabs'],
-                    sel=self._select_device)
+                    a['lam'], a['mats'], a['seltabs'])
             return fused_luma_band_stage_a(
                 band, halo, W, H, log2_ctu, tuple(sizes), nr, r, a['K'],
                 a['trellis'], a['ls'], a['bd'], a['lam_dq'], a['lv'],
@@ -474,16 +463,15 @@ class WavefrontSearch:
     def _decide_chunk(self, dispatched, chunk=0):
         """Wait for a dispatched stage A (of chunk `chunk`) and run the
         decide phases; returns (batch, all_trees, device planes) ready for
-        _commit_all."""
-        self.batch, sizes, res, dev_planes = dispatched
-        F = len(self.batch)
-        luma_mode_b = {}
-        luma_cost_b = {}
-        luma_cands_b = {}
-        luma_cand_cost_b = {}
+        _commit_all. The chunk's arrays stay in locals: the search holds
+        nothing of a chunk, so chunks may be decided in any order."""
+        batch, sizes, res, dev_planes, marks = dispatched
+        F = len(batch)
+        luma_mode_b, luma_cost_b, luma_cands_b, luma_cand_cost_b = \
+            {}, {}, {}, {}
         with self._phase('device_stage_a', chunk):
             res = _fetch_cells(res)                   # waits for the device
-            self._device_time(*self._luma_marks.pop(chunk, (None, None)))
+            self._device_time(*marks)
         with self._phase('host_select', chunk):
             for s in sizes:
                 if len(res[s]) == 3:       # device-side winner selection
@@ -492,7 +480,7 @@ class WavefrontSearch:
                     luma_cost_b[s] = cost[:F]
                     luma_cands_b[s] = rk[:F].astype(np.int32)
                     luma_cand_cost_b[s] = c2[:F]
-                else:
+                else:                      # a row mesh's bands: unselected
                     cands, base = res[s]
                     (luma_mode_b[s], luma_cost_b[s], luma_cands_b[s],
                      luma_cand_cost_b[s]) = self._select_modes(
@@ -504,33 +492,28 @@ class WavefrontSearch:
                                             F, dev_planes)
             else:
                 self._prefill_chroma_cache(chroma_cache, luma_mode_b, sizes,
-                                           F)
+                                           batch)
         with self._phase('host_decide', chunk):
             all_trees = []
             for fi in range(F):
-                self.orig = self.batch[fi]
-                self.luma_cands = {s: luma_cands_b[s][fi] for s in sizes}
-                self.luma_cand_costs = {s: luma_cand_cost_b[s][fi]
-                                        for s in sizes}
-                trees = self._decide_and_commit(
-                    {s: luma_mode_b[s][fi] for s in sizes},
-                    {s: luma_cost_b[s][fi] for s in sizes},
-                    sizes, fi, luma_mode_b, chroma_cache)
-                all_trees.append(trees)
-        return self.batch, all_trees, dev_planes
+                dec = self._decide_frame(
+                    *({s: b[s][fi] for s in sizes} for b in (
+                        luma_mode_b, luma_cost_b, luma_cands_b,
+                        luma_cand_cost_b)), chroma_cache, fi)
+                all_trees.append(_assemble_trees(self.cfg, dec))
+        return batch, all_trees, dev_planes
 
     def _commit_all(self, all_trees, batch, dev_planes=None, sums=None):
         """Commit every frame's decisions against true reconstruction: in
         the native C++ engine (coding-order walk, the frames' CTU rows a
-        wavefront across the host's cores; the RD tree commit, or under rd_commit=False the plain commit of
-        the decided CUs), under commit_engine='device' in the device rank
+        wavefront across the host's cores; the RD tree commit, or under
+        rd_commit=False the plain commit of the decided CUs), under commit_engine='device' in the device rank
         wavefront, and under qp_delta_pattern in the NumPy rank wavefront
         (`_commit`). The port's native loader raises where the JAX search
         would fall back to the NumPy commit. Runs in a worker thread when
-        it overlaps the next chunk (see encode_frames): the native and
-        device branches touch only `batch`/`all_trees`, never
-        chunk-coupled instance state. sums: a dict of the caller's that
-        the device engine adds its phases' seconds and counts into
+        it overlaps the next chunk (see encode_frames); it reads only its
+        arguments and the search's constants. sums: a dict of the caller's
+        that the device engine adds its phases' seconds and counts into
         (commit_frames_device_rd)."""
         cfg = self.cfg
         pat = tuple(getattr(cfg, 'qp_delta_pattern', ()) or ())
@@ -544,11 +527,8 @@ class WavefrontSearch:
                           + (cu.x >> cfg.log2_ctu_size))
                     cu.qp_y = int(np.clip(cfg.qp + pat[ci % len(pat)],
                                           0, 63))
-            recons = []
-            for fi, trees in enumerate(all_trees):
-                self.orig = batch[fi]
-                recons.append(self._commit(trees))
-            return recons
+            return [self._commit(trees, orig)
+                    for trees, orig in zip(all_trees, batch)]
         if self._device_commit:
             return commit_frames_device_rd(self.cfg, batch, all_trees,
                                            dev_planes, self.device, sums)
@@ -575,13 +555,19 @@ class WavefrontSearch:
             self.cfg, batch, cu_lists, ls_tab, bd_tab, lam_dq,
             self.trellis_commit)
 
-    def _decide_and_commit(self, luma_mode, luma_cost, sizes, fi,
-                           luma_mode_b, chroma_cache):
+    def _decide_frame(self, luma_mode, luma_cost, luma_cands,
+                      luma_cand_costs, chroma_cache, fi):
+        """The bottom-up QT decision of frame fi of a chunk, from its luma
+        stage A ({s: per block} for each QT size, smallest first: the
+        winning modes and their costs, the ranked candidates and their
+        costs) and the chunk's chroma costs (chroma_cache); returns its
+        FrameDecision."""
         cfg = self.cfg
         W, H = cfg.width, cfg.height
         dep = cfg.dep_quant_enabled
-        if self.rd_commit:
-            self._prep_cand_matrices(sizes)
+        sizes = list(luma_cost)
+        cand_mat = (self._prep_cand_matrices(luma_cands, luma_cand_costs)
+                    if self.rd_commit else None)
 
         # chroma costs with derived modes (batched across frames, cached)
         hb = self.rm.pick('header_bits', dep, True)
@@ -595,8 +581,8 @@ class WavefrontSearch:
         split = {}
         refine = {}
         margin = self._refine_margin if self.rd_commit else 0.0
-        self.cclm_choice = {}
-        self.scipu_choice = None
+        cclm_choice = {}
+        scipu_choice = None
         for s in sizes:
             n_bw, n_bh = W // s, H // s
             lc = luma_cost[s].reshape(n_bh, n_bw)
@@ -611,9 +597,9 @@ class WavefrontSearch:
             ch = chroma_cache[('leaf', s)][fi]
             ch_total = ch + self.lam * ncc
             if cfg.cclm_enabled:
-                cc, cm = self._cclm_cached(chroma_cache, cs, fi)
+                cc, cm = (a[fi] for a in chroma_cache[('cclm', cs)])
                 use = cc < ch_total
-                self.cclm_choice[s] = np.where(use, cm, -1)
+                cclm_choice[s] = np.where(use, cm, -1)
                 ch_total = np.where(use, cc, ch_total)
             leaf = (lc + ch_total.reshape(n_bh, n_bw)
                     + self.lam * hb)
@@ -628,9 +614,9 @@ class WavefrontSearch:
                 # derived from the centre (bottom-right) 4x4 child
                 sc_total = chroma_cache[('scipu', 8)][fi] + self.lam * ncc
                 if cfg.cclm_enabled:
-                    cc, cm = self._cclm_cached(chroma_cache, 4, fi)
+                    cc, cm = (a[fi] for a in chroma_cache[('cclm', 4)])
                     use = cc < sc_total
-                    self.scipu_choice = np.where(use, cm, -1)
+                    scipu_choice = np.where(use, cm, -1)
                     sc_total = np.where(use, cc, sc_total)
                 agg = agg + sc_total.reshape(n_bh, n_bw) + self.lam * chb
             split_here = agg <= leaf
@@ -641,21 +627,20 @@ class WavefrontSearch:
             cost = np.where(split_here, agg, leaf)
         # plain Python lists for the tree walk (one bulk .tolist() per
         # array instead of per-element numpy scalar indexing)
-        self.split = {s: m.tolist() for s, m in split.items()}
-        self.refine = {s: m.tolist() for s, m in refine.items()}
-        self.luma_mode = {s: np.asarray(m).tolist()
-                          for s, m in luma_mode.items()}
-        self.cclm_choice = {s: np.asarray(c).tolist()
-                            for s, c in self.cclm_choice.items()}
-        if self.scipu_choice is not None:
-            self.scipu_choice = np.asarray(self.scipu_choice).tolist()
-        return self._assemble_trees()
+        return FrameDecision(
+            {s: m.tolist() for s, m in split.items()},
+            {s: m.tolist() for s, m in refine.items()},
+            {s: np.asarray(m).tolist() for s, m in luma_mode.items()},
+            {s: np.asarray(c).tolist() for s, c in cclm_choice.items()},
+            (None if scipu_choice is None
+             else np.asarray(scipu_choice).tolist()),
+            cand_mat)
 
     def _select_modes(self, s, cands, base):
         """Pick the winning luma mode per block from stage A's candidates
-        on the host (WRENC_STAGE_A_SELECT=host), in numpy: the JAX
-        search's arithmetic and dtypes, so the same picks and the same
-        np.argsort tie order.
+        on the host, in numpy, where stage A returns them unselected (a
+        row mesh's band stage A): the JAX search's arithmetic and dtypes,
+        so the same picks and the same np.argsort tie order.
 
         base is ssd + lam*rate (no mode bits). After a provisional pick
         with the static expectation, each block's MPM list is approximated
@@ -694,11 +679,13 @@ class WavefrontSearch:
         return (mode.astype(np.int64), cost, ranked.astype(np.int32),
                 ranked_cost)
 
-    def _prefill_chroma_cache(self, cache, luma_mode_b, sizes, F):
-        """All chroma stage-A costs in one native host call
+    def _prefill_chroma_cache(self, cache, luma_mode_b, sizes, batch):
+        """All chroma stage-A costs of the chunk's frames (batch: per
+        frame its three int32 planes) in one native host call
         (wrenc_chroma_stage_a), combined in f64."""
         cfg = self.cfg
         W, H = cfg.width, cfg.height
+        F = len(batch)
         dmodes = {}
         for cs in (4, 8, 16):
             s = 2 * cs
@@ -710,7 +697,7 @@ class WavefrontSearch:
         ls_c = [self.qpar[(1, lg)].ls for lg in (2, 3, 4)]
         bd_c = [self.qpar[(1, lg)].bd_shift for lg in (2, 3, 4)]
         res = native.chroma_stage_a_native(
-            cfg, self.batch, dmodes, scipu_modes, ls_c, bd_c,
+            cfg, batch, dmodes, scipu_modes, ls_c, bd_c,
             self.lam_dq_greedy, self.lv_greedy)
         lam = self.lam
         dep = cfg.dep_quant_enabled
@@ -800,32 +787,17 @@ class WavefrontSearch:
             scipu_modes, a['ls_c'], a['bd_c'], a['lam_dq'], a['lv'],
             a['lam'], a['cclm_bits'], a['mats_c'])
 
-    def _cclm_cached(self, cache, cs, fi):
-        cc, cm = cache[('cclm', cs)]
-        return cc[fi], cm[fi]
-
-    # ----------------------------------------------------- tree assembly
-    def _assemble_trees(self):
-        cfg = self.cfg
-        W, H = cfg.width, cfg.height
-        cs = cfg.ctu_size
-        trees = []
-        for cy in range(0, H, cs):
-            for cx in range(0, W, cs):
-                trees.append(self._build_node(cx, cy, cfg.log2_ctu_size,
-                                              0, 'S', 'ALL'))
-        return trees
-
-    def _prep_cand_matrices(self, sizes):
+    def _prep_cand_matrices(self, luma_cands, luma_cand_costs):
         """Vectorised commit candidate lists per size: ranked stage-A
         candidates + the +-1 probes around the best angular (the reference
         step search's final refinement, block_splitter.rs:905-974), with
-        confident blocks pruned to the winner alone. -1 pads."""
-        self.cand_mat = {}
+        confident blocks pruned to the winner alone. -1 pads. Returns
+        {s: (N, K+2) int32}."""
+        cand_mat = {}
         prune = getattr(self.rm, 'rd_commit_prune_margin', 0.0)
-        for s in sizes:
-            cands = np.asarray(self.luma_cands[s])        # (N, K) ranked
-            costs = np.asarray(self.luma_cand_costs[s])
+        for s in luma_cands:
+            cands = np.asarray(luma_cands[s])             # (N, K) ranked
+            costs = np.asarray(luma_cand_costs[s])
             N, K = cands.shape
             out = np.full((N, K + 2), -1, np.int32)
             out[:, :K] = cands
@@ -842,58 +814,8 @@ class WavefrontSearch:
                 pr = (costs[:, 1] - costs[:, 0]
                       > prune * np.maximum(np.abs(costs[:, 0]), 1.0))
                 out[pr, 1:] = -1
-            self.cand_mat[s] = out
-
-    def _make_leaf_cu(self, x, y, log2, tree, s):
-        idx = (y // s) * (self.cfg.width // s) + x // s
-        m = int(self.luma_mode[s][idx])
-        cmode = m
-        if tree == 'S' and s in self.cclm_choice:
-            cc = int(self.cclm_choice[s][idx])
-            if cc >= 0:
-                cmode = cc
-        cu = CuDecision(x, y, log2, tree, luma_mode=m,
-                        chroma_mode=(cmode if tree == 'S' else 0))
-        if self.rd_commit:
-            cu.cands = self.cand_mat[s][idx]   # fixed-width row, -1 padded
-        return cu
-
-    def _build_node(self, x, y, log2, cqt_depth, tree, mode_type):
-        s = 1 << log2
-        node = CtNode(x, y, log2, cqt_depth, tree, mode_type)
-        min_log2 = self.cfg.log2_ctu_size - self.cfg.max_split_depth
-        do_split = (log2 > min_log2
-                    and bool(self.split[s][y // s][x // s]))
-        do_refine = (tree == 'S' and log2 > min_log2 and s in self.refine
-                     and bool(self.refine[s][y // s][x // s]))
-        if do_refine:
-            node.refine = True
-            node.alt_cu = self._make_leaf_cu(x, y, log2, tree, s)
-            do_split = True
-        if do_split:
-            node.split = True
-            half = s >> 1
-            scipu = (tree == 'S' and s == 8 and self.cfg.chroma_format == 1)
-            for i in range(4):
-                bx, by = x + (i % 2) * half, y + (i // 2) * half
-                node.children.append(self._build_node(
-                    bx, by, log2 - 1, cqt_depth + 1,
-                    'L' if scipu else tree, 'INTRA' if scipu else mode_type))
-            if scipu:
-                ch = CtNode(x, y, log2, cqt_depth, 'C', 'INTRA')
-                center = int(self.luma_mode[4][(y // 4 + 1) * (self.cfg.width // 4)
-                                               + (x // 4 + 1)])
-                if self.scipu_choice is not None:
-                    idx = (y // 8) * (self.cfg.width // 8) + x // 8
-                    cc = int(self.scipu_choice[idx])
-                    if cc >= 0:
-                        center = cc
-                ch.cu = CuDecision(x, y, log2, 'C', luma_mode=0,
-                                   chroma_mode=center)
-                node.children.append(ch)
-        else:
-            node.cu = self._make_leaf_cu(x, y, log2, tree, s)
-        return node
+            cand_mat[s] = out
+        return cand_mat
 
     # ------------------------------------------------------------- commit
     def _collect_cus(self, trees):
@@ -914,10 +836,11 @@ class WavefrontSearch:
             # SCIPU chroma node appears in children; handled by walk
         return out
 
-    def _commit(self, trees):
-        """The NumPy rank-wavefront commit of one frame (self.orig): the
-        decided modes applied in dependency-rank order (rank_groups), each
-        (rank, size, tree) group as one batch per component."""
+    def _commit(self, trees, orig):
+        """The NumPy rank-wavefront commit of one frame (orig: its three
+        int32 planes): the decided modes applied in dependency-rank order
+        (rank_groups), each (rank, size, tree) group as one batch per
+        component."""
         cfg = self.cfg
         W, H = cfg.width, cfg.height
         recon = [np.zeros((H, W), dtype=np.int32),
@@ -926,13 +849,13 @@ class WavefrontSearch:
         for (rank, log2, tree), batch in rank_groups(
                 self._collect_cus(trees), W, H):
             if tree in ('S', 'L'):
-                self._commit_comp(batch, 0, log2, recon)
+                self._commit_comp(batch, 0, log2, recon, orig)
             if tree in ('S', 'C'):
-                self._commit_comp(batch, 1, log2 - 1, recon)
-                self._commit_comp(batch, 2, log2 - 1, recon)
+                self._commit_comp(batch, 1, log2 - 1, recon, orig)
+                self._commit_comp(batch, 2, log2 - 1, recon, orig)
         return recon
 
-    def _commit_comp(self, batch, c_idx, log2, recon):
+    def _commit_comp(self, batch, c_idx, log2, recon, orig):
         cfg = self.cfg
         W, H = cfg.width, cfg.height
         s = 1 << log2
@@ -961,7 +884,7 @@ class WavefrontSearch:
                 pred[sel] = np_ops.predict_cclm_np(
                     m, recon[0], recon[c_idx], xs[sel], ys[sel], s,
                     masks[sel], cfg.ctu_size)
-        org = np.stack([self.orig[c_idx][y:y + s, x:x + s]
+        org = np.stack([orig[c_idx][y:y + s, x:x + s]
                         for x, y in zip(xs, ys)])
         res = org - pred
         t = np_ops.forward_dct2_np(res)
@@ -1009,6 +932,78 @@ class WavefrontSearch:
         for i, cu in enumerate(batch):
             recon[c_idx][ys[i]:ys[i] + s, xs[i]:xs[i] + s] = rec[i]
             cu.coeffs[c_idx] = q[i]
+
+
+class FrameDecision(NamedTuple):
+    """One frame's QT decision (WavefrontSearch._decide_frame) as plain
+    lists per QT size s: split / refine flags (H/s rows of W/s), each
+    block's luma mode and CCLM choice (-1: derived) in raster order, the
+    SCIPU chroma CU's CCLM choice per 8x8 block (None without SCIPU or
+    CCLM), and the RD commit's candidate rows (None without it)."""
+    split: dict
+    refine: dict
+    luma_mode: dict
+    cclm_choice: dict
+    scipu_choice: list
+    cand_mat: dict
+
+
+def _assemble_trees(cfg, dec):
+    """One frame's CTU trees, in raster order, from its FrameDecision
+    alone."""
+    W = cfg.width
+    min_log2 = cfg.log2_ctu_size - cfg.max_split_depth
+
+    def leaf(x, y, log2, tree, s):
+        idx = (y // s) * (W // s) + x // s
+        m = int(dec.luma_mode[s][idx])
+        cmode = m
+        if tree == 'S' and s in dec.cclm_choice:
+            cc = int(dec.cclm_choice[s][idx])
+            if cc >= 0:
+                cmode = cc
+        cu = CuDecision(x, y, log2, tree, luma_mode=m,
+                        chroma_mode=(cmode if tree == 'S' else 0))
+        if dec.cand_mat is not None:
+            cu.cands = dec.cand_mat[s][idx]   # fixed-width row, -1 padded
+        return cu
+
+    def node(x, y, log2, cqt_depth, tree, mode_type):
+        s = 1 << log2
+        n = CtNode(x, y, log2, cqt_depth, tree, mode_type)
+        do_split = log2 > min_log2 and bool(dec.split[s][y // s][x // s])
+        if (tree == 'S' and log2 > min_log2 and s in dec.refine
+                and bool(dec.refine[s][y // s][x // s])):
+            n.refine = True
+            n.alt_cu = leaf(x, y, log2, tree, s)
+            do_split = True
+        if not do_split:
+            n.cu = leaf(x, y, log2, tree, s)
+            return n
+        n.split = True
+        half = s >> 1
+        scipu = tree == 'S' and s == 8 and cfg.chroma_format == 1
+        for i in range(4):
+            n.children.append(node(
+                x + (i % 2) * half, y + (i // 2) * half, log2 - 1,
+                cqt_depth + 1, 'L' if scipu else tree,
+                'INTRA' if scipu else mode_type))
+        if scipu:
+            ch = CtNode(x, y, log2, cqt_depth, 'C', 'INTRA')
+            center = int(dec.luma_mode[4][(y // 4 + 1) * (W // 4)
+                                          + (x // 4 + 1)])
+            if dec.scipu_choice is not None:
+                cc = int(dec.scipu_choice[(y // 8) * (W // 8) + x // 8])
+                if cc >= 0:
+                    center = cc
+            ch.cu = CuDecision(x, y, log2, 'C', luma_mode=0,
+                               chroma_mode=center)
+            n.children.append(ch)
+        return n
+
+    cs = cfg.ctu_size
+    return [node(cx, cy, cfg.log2_ctu_size, 0, 'S', 'ALL')
+            for cy in range(0, cfg.height, cs) for cx in range(0, W, cs)]
 
 
 def _fetch_cells(cells):

@@ -2,8 +2,9 @@
 wrenc_tpu.tools.encode, plus --device. --dp N shards stage A's frames
 over N cards (0, the default: every card, when there are more than one;
 with --device cpu, N copies of the CPU device); the environment switches
-of the search (WRENC_COMMIT_ENGINE, WRENC_CHROMA_STAGE_A,
-WRENC_STAGE_A_SELECT) apply.
+of the search (WRENC_COMMIT_ENGINE, WRENC_CHROMA_STAGE_A) apply. Stage A
+selects the luma winners on the device (the --dp mesh has no row axis,
+the one place where the host selects them).
 
     python -m wrenc_tpu_torch.tools.encode -i in.yuv -o out.vvc \
         --input-size 352x288 --output-size 352x288 --num-pictures 30 \
