@@ -8,6 +8,7 @@ without refine phantoms. On the CPU `trellis_rate_batch` runs its plain
 twin; chip_smoke.py holds kernel K1 against that twin on the card.
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -470,25 +471,40 @@ def test_device_engine_matches_native_engine():
             assert (rec_d[c] == rec_n[c]).all()
 
 
-def test_device_engine_commit_groups(monkeypatch):
-    """One-frame stage-A chunks committed in groups of two (the last group
-    a single chunk) give the bytes of one chunk and one scan: the groups'
-    device planes are concatenated and the scan is per-frame exact."""
+@pytest.mark.parametrize("group,sizes", [(2, [2, 1]), (1, [1, 1, 1])])
+def test_device_engine_commit_groups(group, sizes, monkeypatch):
+    """One-frame stage-A chunks committed in groups of `group` give the
+    bytes of one chunk and one scan: the groups' device planes are
+    concatenated and the scan is per-frame exact. Groups of two: the last
+    group a single chunk. Groups of one, the plan above 0.5 Mpx (one scan
+    per chunk): three scans, each in the commit worker, chunk k's joined
+    only after chunk k + 1's decide."""
     cfg = EncoderConfig(width=64, height=64, qp=30)
     frames = [synth_frame(64, 64, seed=80 + k) for k in range(3)]
     want, _ = Encoder(_port_cfg(cfg), search=_device_search(cfg)).encode(
         frames)
     monkeypatch.setattr(WavefrontSearch, "DEVICE_BATCH_BUCKETS", (1,))
     monkeypatch.setattr(WavefrontSearch, "_commit_group_frames",
-                        lambda self: 2)
+                        lambda self: group)
     search = _device_search(cfg)
-    commits = []
-    commit_all = search._commit_all
+    commits, events = [], []
+    commit_all, decide = search._commit_all, search._decide_chunk
     monkeypatch.setattr(search, "_commit_all", lambda t, b, d, s: commits.append(
-        len(b)) or commit_all(t, b, d, s))
+        (len(b), threading.current_thread() is threading.main_thread()))
+        or commit_all(t, b, d, s))
+    monkeypatch.setattr(search, "_decide_chunk", lambda p, k: events.append(
+        ("decide", k)) or decide(p, k))
+    join = search._join_commit
+    monkeypatch.setattr(search, "_join_commit", lambda prev: events.append(
+        ("join", prev[2])) or join(prev))
     got, _ = Encoder(_port_cfg(cfg), search=search).encode(frames)
-    assert commits == [2, 1]
+    assert commits == [(n, False) for n in sizes]
     assert got == want
+    if group == 1:
+        # the main thread joins chunk k's commit only after chunk k + 1's
+        # decide: the worker's scan of chunk k runs under it
+        assert events == [("decide", 0), ("decide", 1), ("join", 0),
+                          ("decide", 2), ("join", 1), ("join", 2)]
 
 
 @pytest.mark.parametrize("how", ["arg", "env"])
@@ -515,3 +531,37 @@ def test_device_engine_defaults_to_device_chroma(how, monkeypatch):
     monkeypatch.setenv("WRENC_CHROMA_STAGE_A", "native")
     search = WavefrontSearch(cfg, device='cpu', **kw)
     assert search._device_commit and not search._chroma_device
+
+
+def test_device_engine_plan_at_1080p(monkeypatch):
+    """The device engine's plan at 1920x1088, the JAX package's: stage-A
+    buckets [1, 2, 4] (DEVICE_CHUNK_PIXEL_BUDGET), one scan per 4 frames,
+    so an 8-frame call is two chunks and two commits, both in the commit
+    worker, the first joined after the second chunk's decide. No encode:
+    stage A, the decide and the commit are stubbed."""
+    monkeypatch.delenv("WRENC_COMMIT_GROUP", raising=False)
+    cfg = EncoderConfig(width=1920, height=1088, qp=32)
+    search = WavefrontSearch(_port_cfg(cfg), commit_engine='device',
+                             device='cpu')
+    jax_search = JaxSearch(cfg, commit_engine='device')
+    assert search._device_commit and search._chroma_device
+    assert search._buckets() == jax_search._buckets() == [1, 2, 4]
+    assert search._commit_group_frames() == \
+        jax_search._commit_group_frames() == 4
+    events, commits = [], []
+    monkeypatch.setattr(search, "_dispatch_stage_a", lambda fr, k: events.append(
+        ("dispatch", k, len(fr))) or (list(fr), k))
+    monkeypatch.setattr(search, "_decide_chunk", lambda d, k: events.append(
+        ("decide", k)) or (d[0], [("trees", f) for f in d[0]], None))
+    monkeypatch.setattr(search, "_commit_all", lambda t, b, d, s: commits.append(
+        (len(b), threading.current_thread() is threading.main_thread()))
+        or [("recon", f) for f in b])
+    join = search._join_commit
+    monkeypatch.setattr(search, "_join_commit", lambda prev: events.append(
+        ("join", prev[2])) or join(prev))
+    out = search.encode_frames(list(range(8)))
+    assert out == [(("trees", f), ("recon", f)) for f in range(8)]
+    assert commits == [(4, False), (4, False)]
+    assert events == [("dispatch", 0, 4), ("dispatch", 1, 4), ("decide", 0),
+                      ("decide", 1), ("join", 0), ("join", 1)]
+    assert search.phase_times["host_commit_work"] >= 0

@@ -156,3 +156,15 @@ def test_the_graph_and_row_counts(monkeypatch):
     chroma = [c for c in chroma if c]
     assert ph["n_cclm_pick_launches"] == len(chroma) == len(picks) > 0
     assert ph["n_cclm_pick_rows"] == sum(map(sum, chroma)) == sum(picks)
+
+
+def test_no_capture_span_off_cuda(monkeypatch):
+    """device_commit_capture times the capture of a step shape's CUDA
+    graph: off CUDA the steps run eagerly, so a two-scan call records no
+    such span and adds no such seconds."""
+    (stream, again), phases, d, _ = _run(monkeypatch, 2, group=1)
+    assert stream == again
+    assert not [s for s in d["spans"] if s["name"] == "device_commit_capture"]
+    assert "device_commit_capture" not in phases
+    assert phases["n_commit_graph_captures"] == 0
+    assert {s["name"] for s in d["spans"]} >= set(SPANS)

@@ -521,13 +521,14 @@ def commit_frames_device_rd(cfg, origs, all_trees, dev_planes=None,
     Its four phases are spans (trace.span) of the caller's call and
     chunk: device_commit_schedule (the schedule, its padded steps and
     their upload, the scan context's reset), device_commit_scan (issuing
-    every rank step; nothing in it waits for the device),
+    every rank step; nothing in it waits for the device; on CUDA each
+    graph capture in it is a span device_commit_capture of its own),
     device_commit_fetch (the one wait: planes and outputs to the host)
     and device_commit_writeback (modes, coefficients and refine flags
     into the CUs). The scan holds its context's lock from the reset to
-    the fetch. sums: a dict that gets each phase's seconds and the scan's
-    counts (RdScan.counts, COUNTS) added; the counts are also attributes
-    of the device_commit_scan span."""
+    the fetch. sums: a dict that gets each phase's seconds, the captures'
+    (RdScan.seconds) and the scan's counts (RdScan.counts, COUNTS) added;
+    the counts are also attributes of the device_commit_scan span."""
     with contextlib.ExitStack() as held:
         with trace.span('device_commit_schedule', sums):
             if dev_planes is None:
@@ -550,7 +551,7 @@ def commit_frames_device_rd(cfg, origs, all_trees, dev_planes=None,
         if has_ph:
             _apply_refine_flags(all_trees, use_map)
     if sums is not None:
-        for k, v in scan.counts.items():
+        for k, v in (*scan.counts.items(), *scan.seconds.items()):
             sums[k] = sums.get(k, 0) + v
     return recons
 
@@ -724,7 +725,8 @@ class RdScan:
     `run_segment` for each segment in order (no host-device
     synchronization inside), then `finish` (one fetch; writes modes and
     coefficients into the CU objects). `counts` holds what the scan has
-    run (COUNTS); it alone counts the K1 launches of replayed graphs."""
+    run (COUNTS); it alone counts the K1 launches of replayed graphs.
+    `seconds` sums the spans inside the scan (device_commit_capture)."""
 
     def __init__(self, cfg, F, segments, has_ph, dev_planes, ctx):
         self.W, self.H = cfg.width, cfg.height
@@ -753,12 +755,16 @@ class RdScan:
                              else np.zeros(0, np.int64), dev)
         ctx.reset(dev_planes)
         self.counts = dict.fromkeys(COUNTS, 0)
+        self.seconds = {}
 
     # ------------------------------------------------------------ the scan
     def run_segment(self, si):
         """Every rank step of segment si, in order: its rows copied into
         its shape's buffer, then on CUDA its shape's graph replayed
-        (captured first at the shape's first step), else the step run."""
+        (captured first at the shape's first step: the span
+        device_commit_capture, its attribute `shape` the step's (tree,
+        log2, row cap, has a phantom) per class, its seconds summed in
+        `seconds`), else the step run."""
         c = self.counts
         for st, o in zip(self.steps[si], self.offs[si]):
             key = self.key + (st.sig,)
@@ -767,8 +773,11 @@ class RdScan:
             if buf.is_cuda:
                 g = self.ctx.graphs.get(key)
                 if g is None:
-                    g = self.ctx.capture(
-                        key, lambda: self._step(self._live(st.sig, buf)))
+                    with trace.span('device_commit_capture', self.seconds,
+                                    shape=[(*ck, int(cap), bool(ph))
+                                           for ck, cap, ph in st.sig]):
+                        g = self.ctx.capture(
+                            key, lambda: self._step(self._live(st.sig, buf)))
                     c['n_commit_graph_captures'] += 1
                 graph, k1, cc = g
                 graph.replay()
